@@ -1,0 +1,124 @@
+"""Inference pipeline: padded two-frame interpolation and streaming.
+
+Counterpart of `atmvfi_tpu/infer/pipeline.py::InterpolationPipeline`
+(single device, no ensemble). Frames go to the device once and stay
+there between the steps of a stream and of the 4x / 8x recursion; only
+uint8 frames cross to the host. The default working type is bf16, as
+in the JAX pipeline; `dtype=torch.float32` is the parity mode.
+"""
+from __future__ import annotations
+
+from typing import Iterable, List, Optional, Union
+
+import numpy as np
+import torch
+
+from atmvfi_tpu_torch.infer.padder import InputPadder
+from atmvfi_tpu_torch.models import ATMVFIConfig, Network, get_config
+
+
+def resolve_device(device: Union[str, torch.device]) -> torch.device:
+    """The device to run on; raises for CUDA when no card is present."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' requested but no CUDA device is "
+                           "available (pass device='cpu' to run the plain "
+                           "PyTorch versions on the CPU)")
+    return dev
+
+
+class InterpolationPipeline:
+    """Model variant + weights -> frame interpolator.
+
+    state_dict: the port's weights (`convert.load_checkpoint`,
+    `convert.params_from_jax`); None keeps the seeded random weights of
+    `torch.Generator().manual_seed(0)`. `variant` is "base", "lite" or
+    an `ATMVFIConfig`.
+    """
+
+    def __init__(self, state_dict: Optional[dict] = None,
+                 variant: Union[str, ATMVFIConfig] = "base",
+                 dtype: torch.dtype = torch.bfloat16,
+                 global_motion: bool = True,
+                 ensemble_global_motion: bool = False,
+                 pad_divisor: int = 64, device="cuda"):
+        if ensemble_global_motion:
+            raise NotImplementedError(
+                "the multiscale global-motion ensemble is not ported yet")
+        self.device = resolve_device(device)
+        cfg = (get_config(variant) if isinstance(variant, str) else variant)
+        self.cfg = cfg.with_dtype(dtype)
+        net = Network(self.cfg, torch.Generator().manual_seed(0))
+        if state_dict is not None:
+            net.load_state_dict(state_dict, strict=True)
+        self.net = net.to(self.device).eval()
+        self.global_motion = global_motion
+        self.pad_divisor = pad_divisor
+
+    @torch.inference_mode()
+    def interpolate_device(self, im0: torch.Tensor,
+                           im1: torch.Tensor) -> torch.Tensor:
+        """Padded NHWC float frames on the device -> middle frame (f32)."""
+        out = self.net(im0, im1, global_motion=self.global_motion)
+        return torch.clamp(out["I_t"], 0.0, 1.0).float()
+
+    def _upload(self, frame: np.ndarray) -> torch.Tensor:
+        x = torch.from_numpy(np.require(frame, requirements=["C", "W"]))
+        x = x.to(self.device)
+        return x.float()[None] / 255.0
+
+    @staticmethod
+    def _to_uint8(x: torch.Tensor) -> np.ndarray:
+        return (torch.round(torch.clamp(x[0], 0, 1) * 255.0)
+                .to(torch.uint8).cpu().numpy())
+
+    def interpolate(self, img0: np.ndarray, img1: np.ndarray) -> np.ndarray:
+        """uint8 RGB [H, W, 3] x2 -> uint8 middle frame: /255, replicate
+        pad to `pad_divisor`, forward, unpad, round."""
+        x0, x1 = self._upload(img0), self._upload(img1)
+        padder = InputPadder(x0.shape, divisor=self.pad_divisor)
+        x0, x1 = padder.pad(x0, x1)
+        return self._to_uint8(padder.unpad(self.interpolate_device(x0, x1)))
+
+    def interpolate_stream(self, frames: Iterable[np.ndarray],
+                           factor: int = 2) -> Iterable[np.ndarray]:
+        """Nx interpolation over uint8 frames: yields `factor` frames per
+        input step, then the last source frame."""
+        if factor not in (2, 4, 8):
+            raise ValueError("factor must be 2, 4 or 8")
+        prev = None
+        padder = None
+        for frame in frames:
+            x = self._upload(frame)
+            if padder is None:
+                padder = InputPadder(x.shape, divisor=self.pad_divisor)
+            x = padder.pad(x)
+            if prev is not None:
+                for mid in self._recursive_midpoints(prev, x, factor):
+                    yield self._to_uint8(padder.unpad(mid))
+            prev = x
+        if prev is not None:
+            yield self._to_uint8(padder.unpad(prev))
+
+    def _recursive_midpoints(self, a, b, factor: int) -> List[torch.Tensor]:
+        """`a`, then the frames strictly between a and b, in order."""
+        mid = self.interpolate_device(a, b)
+        if factor == 2:
+            return [a, mid]
+        return (self._recursive_midpoints(a, mid, factor // 2)
+                + self._recursive_midpoints(mid, b, factor // 2))
+
+
+def load_pipeline(checkpoint_path: str, variant="base",
+                  dtype: torch.dtype = torch.bfloat16,
+                  **kw) -> InterpolationPipeline:
+    """Pipeline from a reference .pt/.pth or a JAX-package .npz."""
+    from atmvfi_tpu_torch import convert
+
+    if checkpoint_path.endswith((".pt", ".pth")):
+        sd, meta = convert.load_checkpoint(checkpoint_path)
+    else:
+        sd, meta = convert.load_npz(checkpoint_path)
+    if meta:
+        print(f"checkpoint meta: {sorted(meta)}")
+    return InterpolationPipeline(sd, variant=variant, dtype=dtype, **kw)

@@ -1,0 +1,353 @@
+"""Model building blocks (NHWC activations, PyTorch modules).
+
+Counterpart of `atmvfi_tpu/models/layers.py`. Module and parameter
+names are the reference model's state_dict names, so a reference
+checkpoint (or a JAX one through `convert.params_from_jax`) loads with
+`strict=True`. Parameters stay f32; each module casts its input and
+weights to its working `dtype` at use, as the JAX modules do.
+
+Activations are NHWC tensors. The convolutions hand cuDNN an NCHW view
+of them (`permute(0, 3, 1, 2)`), which is channels_last in memory, so
+no layout copy is made around a convolution.
+
+The two transformer blocks run kernel K1 (`ops.attention_cuda.
+atm_block`) the way the JAX "block" mode does: ATMFormer with the frame
+swap and the motion moment, RefineBottleneck as self-attention.
+"""
+from __future__ import annotations
+
+import functools
+import math
+from typing import Optional
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from atmvfi_tpu_torch import ops
+from atmvfi_tpu_torch.ops.attention import layer_norm_f32
+from atmvfi_tpu_torch.ops.attention_cuda import atm_block
+
+LN_EPS = 1e-5
+
+
+# ---- seeded initialisers (the JAX package's init statistics) ---------
+def uniform_(t: torch.Tensor, bound: float, gen: torch.Generator):
+    with torch.no_grad():
+        t.copy_((torch.rand(t.shape, generator=gen) * 2 - 1) * bound)
+
+
+def normal_(t: torch.Tensor, std: float, gen: torch.Generator):
+    with torch.no_grad():
+        t.copy_(torch.randn(t.shape, generator=gen) * std)
+
+
+def trunc_normal_(t: torch.Tensor, std: float, gen: torch.Generator):
+    """Normal(0, std) truncated to +-2 std, by redrawing outliers."""
+    with torch.no_grad():
+        v = torch.randn(t.shape, generator=gen)
+        bad = v.abs() > 2
+        while bool(bad.any()):
+            v[bad] = torch.randn(int(bad.sum()), generator=gen)
+            bad = v.abs() > 2
+        t.copy_(v * std)
+
+
+# ---- convolutions ----------------------------------------------------
+class Conv2d(nn.Module):
+    """NHWC convolution with nn.Conv2d's parameters (weight OIHW, bias).
+
+    init "torch": U(+-1/sqrt(fan_in)) weight and bias (reference conv
+    helpers); "msra": N(0, sqrt(2/fan_out)) weight, zero bias (convs
+    under the reference's `_init_weights`).
+    """
+
+    def __init__(self, cin: int, cout: int, kernel: int = 3, stride: int = 1,
+                 padding: int = None, dilation: int = 1, groups: int = 1,
+                 dtype: torch.dtype = torch.float32, init: str = "torch"):
+        super().__init__()
+        self.stride, self.dilation, self.groups = stride, dilation, groups
+        self.padding = kernel // 2 if padding is None else padding
+        self.dtype, self.init = dtype, init
+        self.weight = nn.Parameter(torch.empty(cout, cin // groups, kernel,
+                                               kernel))
+        self.bias = nn.Parameter(torch.empty(cout))
+
+    def reset_parameters(self, gen: torch.Generator):
+        o, i, kh, kw = self.weight.shape
+        if self.init == "msra":
+            normal_(self.weight, math.sqrt(2.0 / (kh * kw * o / self.groups)),
+                    gen)
+            nn.init.zeros_(self.bias)
+        else:
+            bound = 1.0 / math.sqrt(i * kh * kw)
+            uniform_(self.weight, bound, gen)
+            uniform_(self.bias, bound, gen)
+
+    def forward(self, x):  # [B, H, W, Cin] -> [B, H, W, Cout]
+        dt = self.dtype
+        y = F.conv2d(x.to(dt).permute(0, 3, 1, 2), self.weight.to(dt),
+                     self.bias.to(dt), self.stride, self.padding,
+                     self.dilation, self.groups)
+        return y.permute(0, 2, 3, 1)
+
+
+class PReLU(nn.Module):
+    """Per-channel PReLU on NHWC: where(x >= 0, x, a * x), which equals
+    the JAX package's max(x, 0) + a * min(x, 0) for every finite x. One
+    F.prelu pass over the channels_last view (the max/min form costs
+    four elementwise passes on the card)."""
+
+    def __init__(self, features: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(features))
+
+    def reset_parameters(self, gen: torch.Generator):
+        nn.init.constant_(self.weight, 0.25)
+
+    def forward(self, x):
+        y = F.prelu(x.permute(0, 3, 1, 2), self.weight.to(x.dtype))
+        return y.permute(0, 2, 3, 1)
+
+
+class ConvPReLU(nn.Sequential):
+    """conv3x3 + PReLU (reference `conv` helper: `.0` conv, `.1` PReLU)."""
+
+    def __init__(self, cin: int, cout: int, stride: int = 1,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(Conv2d(cin, cout, 3, stride, 1, dtype=dtype),
+                         PReLU(cout))
+
+
+class ConvTranspose2x(nn.Module):
+    """ConvTranspose(k=2, s=2), NHWC, nn.ConvTranspose2d parameters
+    (weight [Cin, Cout, 2, 2]):
+    out[2h+dy, 2w+dx, o] = sum_i x[h, w, i] * weight[i, o, dy, dx] + b[o]."""
+
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(cin, cout, 2, 2))
+        self.bias = nn.Parameter(torch.empty(cout))
+
+    def reset_parameters(self, gen: torch.Generator):
+        bound = 1.0 / math.sqrt(4 * self.weight.shape[0])
+        uniform_(self.weight, bound, gen)
+        uniform_(self.bias, bound, gen)
+
+    def forward(self, x):
+        dt = self.dtype
+        y = F.conv_transpose2d(x.to(dt).permute(0, 3, 1, 2),
+                               self.weight.to(dt), self.bias.to(dt), stride=2)
+        return y.permute(0, 2, 3, 1)
+
+
+class Deconv2x(nn.Sequential):
+    """ConvTranspose(k=2, s=2) + PReLU (reference `deconv` helper)."""
+
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32):
+        super().__init__(ConvTranspose2x(cin, cout, dtype), PReLU(cout))
+
+
+class DWConv(nn.Module):
+    """3x3 depthwise conv inside the transformer MLP (`.dwconv`)."""
+
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dwconv = Conv2d(dim, dim, 3, 1, 1, groups=dim, dtype=dtype,
+                             init="msra")
+
+    def forward(self, x):
+        return self.dwconv(x)
+
+
+# ---- dense layers ----------------------------------------------------
+class Linear(nn.Module):
+    """nn.Linear parameters ([out, in]); trunc-normal(0.02) init."""
+
+    def __init__(self, cin: int, cout: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(cout, cin))
+        self.bias = nn.Parameter(torch.empty(cout)) if bias else None
+
+    def reset_parameters(self, gen: torch.Generator):
+        trunc_normal_(self.weight, 0.02, gen)
+        if self.bias is not None:
+            nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        dt = self.dtype
+        b = None if self.bias is None else self.bias.to(dt)
+        return F.linear(x.to(dt), self.weight.to(dt), b)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm over channels with f32 statistics, output in `dtype`."""
+
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(dim))
+        self.bias = nn.Parameter(torch.empty(dim))
+
+    def reset_parameters(self, gen: torch.Generator):
+        nn.init.ones_(self.weight)
+        nn.init.zeros_(self.bias)
+
+    def forward(self, x):
+        return layer_norm_f32(x, self.weight, self.bias, LN_EPS).to(self.dtype)
+
+
+class Mlp(nn.Module):
+    """fc1 -> depthwise conv -> GELU(erf) -> fc2."""
+
+    def __init__(self, dim: int, hidden: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.fc1 = Linear(dim, hidden, dtype=dtype)
+        self.dwconv = DWConv(hidden, dtype)
+        self.fc2 = Linear(hidden, dim, dtype=dtype)
+
+    def forward(self, x):  # [B, H, W, C]
+        return self.fc2(F.gelu(self.dwconv(self.fc1(x))))
+
+
+# ---- window attention ------------------------------------------------
+@functools.lru_cache(maxsize=32)
+def _device_mask(h: int, w: int, window: int, shift: int,
+                 device: torch.device) -> Optional[torch.Tensor]:
+    """The [nW, N, N] f32 mask of one (resolution, window, shift), kept on
+    its device so a forward pays no host-to-device copy for it."""
+    return ops.attn_mask_for(h, w, window, shift, device)
+
+
+@functools.lru_cache(maxsize=8)
+def _device_rel(window: int, device: torch.device) -> torch.Tensor:
+    return ops.relative_coords(window, device)
+
+
+class AttentionToMotion(nn.Module):
+    """Cross-frame window attention emitting appearance + motion.
+
+    Holds q / kv / proj and the per-direction motion MLP (`mlp.0`,
+    `mlp.2`: Linear(h, h/2) -> GELU -> Linear(h/2, 1)). `forward` takes
+    the unnormalised windows and the parent's norm1, and returns
+    norm1(x) + proj(attn) and the motion seed [BW, N, 2].
+    """
+
+    def __init__(self, dim: int, window_size: int, num_heads: int = 8,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.window_size, self.num_heads, self.dtype = window_size, num_heads, dtype
+        self.q = Linear(dim, dim, bias=False, dtype=dtype)
+        self.kv = Linear(dim, 2 * dim, bias=False, dtype=dtype)
+        self.proj = Linear(dim, dim, dtype=dtype)
+        self.mlp = nn.Sequential(Linear(num_heads, num_heads // 2, dtype=dtype),
+                                 nn.GELU(),
+                                 Linear(num_heads // 2, 1, dtype=dtype))
+
+    def forward(self, x_win, mask, norm1: LayerNorm):
+        BW, N, C = x_win.shape
+        h = self.num_heads
+        rel = _device_rel(self.window_size, x_win.device)
+        y, motion = atm_block(
+            x_win.to(self.dtype).contiguous(), self.q.weight, self.kv.weight,
+            self.proj.weight, self.proj.bias, norm1.weight, norm1.bias,
+            (C // h) ** -0.5, rel, mask, h, True)
+        motion = motion.to(self.dtype).reshape(BW, N, h, 2).permute(0, 3, 1, 2)
+        m = self.mlp(motion)  # [BW, 2, N, 1]
+        return y, m[..., 0].transpose(1, 2)  # [BW, N, 2] (dx, dy)
+
+
+class WindowAttention(nn.Module):
+    """Plain self window attention (`qkv`, `proj`)."""
+
+    def __init__(self, dim: int, num_heads: int = 8,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.num_heads, self.dtype = num_heads, dtype
+        self.qkv = Linear(dim, 3 * dim, bias=False, dtype=dtype)
+        self.proj = Linear(dim, dim, dtype=dtype)
+
+    def forward(self, x_win, mask, norm1: LayerNorm):
+        C = x_win.shape[-1]
+        w = self.qkv.weight
+        y, _ = atm_block(
+            x_win.to(self.dtype).contiguous(), w[:C], w[C:],
+            self.proj.weight, self.proj.bias, norm1.weight, norm1.bias,
+            (C // self.num_heads) ** -0.5, None, mask, self.num_heads, False)
+        return y
+
+
+class _SwinShell(nn.Module):
+    """Center pad, cyclic shift and window partition around a block."""
+
+    def __init__(self, dim: int, window_size: int, shift_size: int,
+                 mlp_ratio: float, dtype: torch.dtype):
+        super().__init__()
+        self.window_size, self.shift_size = window_size, shift_size
+        self.norm1 = LayerNorm(dim, dtype)
+        self.norm2 = LayerNorm(dim, dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
+
+    def _prologue(self, x):
+        _, H, W, _ = x.shape
+        ws, ss = self.window_size, self.shift_size
+        mask = _device_mask(H, W, ws, ss, x.device)
+        x_pad = ops.center_pad(x, ws)
+        if ss:
+            x_pad = torch.roll(x_pad, (-ss, -ss), (1, 2))
+        return ops.window_partition(x_pad, ws), mask, x_pad.shape[1:3]
+
+    def _epilogue(self, windows, Hp: int, Wp: int, H: int, W: int):
+        back = ops.window_reverse(windows, self.window_size, Hp, Wp)
+        if self.shift_size:
+            back = torch.roll(back, (self.shift_size, self.shift_size), (1, 2))
+        return ops.center_depad(back, H, W, self.window_size)
+
+    def _mlp_residual(self, x):
+        return x + self.mlp(self.norm2(x))
+
+
+class ATMFormer(_SwinShell):
+    """Swin-style block around AttentionToMotion. [2B, H, W, C] with the
+    two frames stacked on the batch axis -> (tokens, motion [2B, H, W, 2])."""
+
+    def __init__(self, dim: int, window_size: int = 8, shift_size: int = 0,
+                 num_heads: int = 8, mlp_ratio: float = 4.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(dim, window_size, shift_size, mlp_ratio, dtype)
+        self.attn = AttentionToMotion(dim, window_size, num_heads, dtype)
+
+    def forward(self, x):
+        _, H, W, _ = x.shape
+        x_win, mask, (Hp, Wp) = self._prologue(x)
+        y, motion = self.attn(x_win, mask, self.norm1)
+        x_out = self._epilogue(y, Hp, Wp, H, W)
+        motion_out = self._epilogue(motion, Hp, Wp, H, W)
+        return self._mlp_residual(x_out), motion_out
+
+
+class RefineBottleneck(_SwinShell):
+    """Swin block around plain WindowAttention."""
+
+    def __init__(self, dim: int, window_size: int = 8, shift_size: int = 0,
+                 num_heads: int = 8, mlp_ratio: float = 4.0,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(dim, window_size, shift_size, mlp_ratio, dtype)
+        self.attn = WindowAttention(dim, num_heads, dtype)
+
+    def forward(self, x):
+        _, H, W, _ = x.shape
+        x_win, mask, (Hp, Wp) = self._prologue(x)
+        y = self.attn(x_win, mask, self.norm1)
+        return self._mlp_residual(self._epilogue(y, Hp, Wp, H, W))
+
+
+def reset_parameters(module: nn.Module, gen: torch.Generator) -> None:
+    """Seeded init of every submodule that defines `reset_parameters`."""
+    for m in module.modules():
+        if m is not module and hasattr(m, "reset_parameters") \
+                and not isinstance(m, nn.GELU):
+            m.reset_parameters(gen)

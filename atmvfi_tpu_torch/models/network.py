@@ -1,0 +1,289 @@
+"""ATM-VFI network, two-frame forward (base and lite presets).
+
+Counterpart of `atmvfi_tpu/models/network.py::Network.__call__` on its
+`conv_impl="xla"`, `tail_planar="off"` path: convolutions and deconvs
+are cuDNN calls (`F.conv2d` / `F.conv_transpose2d`) where the JAX
+package used `lax.conv`; the six transformer blocks run kernel K1 and
+every backward warp runs kernel K2 (`ops.warp_cuda`), each of them the
+plain PyTorch version on the CPU.
+
+Frames are stacked on the batch axis so the shared towers run once on
+[2B, ...]. Mixed precision as in the JAX package: images, flows,
+occlusion, warps and blends stay f32; the towers run in `cfg.dtype`;
+flows leave the motion heads in f32.
+"""
+from __future__ import annotations
+
+from typing import List
+
+import torch
+import torch.nn as nn
+
+from atmvfi_tpu_torch import ops
+from atmvfi_tpu_torch.models.config import ATMVFIConfig
+from atmvfi_tpu_torch.models.fusion import CrossScaleFeatureFusion
+from atmvfi_tpu_torch.models.layers import (
+    ATMFormer,
+    Conv2d,
+    ConvPReLU,
+    Deconv2x,
+    PReLU,
+    RefineBottleneck,
+    reset_parameters,
+)
+from atmvfi_tpu_torch.ops.warp_cuda import flow_warp, flow_warp_pair
+
+# named ranges of the forward in torch.profiler traces (stage breakdown
+# of `atmvfi_tpu_torch.tools.profile_main_path`); a no-op otherwise
+span = torch.profiler.record_function
+
+
+def _split_head(out: torch.Tensor):
+    """Motion-head output [..., 5] -> f32 (flow0, flow1, occlusion)."""
+    out_f = out.float()
+    return (out_f[..., 0:2].contiguous(), out_f[..., 2:4].contiguous(),
+            torch.sigmoid(out_f[..., 4:5]))
+
+
+class Network(nn.Module):
+    """forward(im0, im1) -> output dict; im* [B, H, W, 3] in [0, 1] with
+    H, W divisible by 16 (`infer.InputPadder` pads other sizes).
+
+    `generator` seeds the random initialisation (a fixed seed of 0 when
+    None); load real weights with `load_state_dict`.
+    """
+
+    def __init__(self, cfg: ATMVFIConfig, generator: torch.Generator = None):
+        super().__init__()
+        self.cfg = c = cfg
+        dt = c.dtype
+        d = c.hidden_dims
+        mo = c.motion_out_dim
+
+        cins = (3,) + tuple(d[:-1])
+        self.feat_extracts = nn.ModuleList([
+            nn.Sequential(ConvPReLU(cins[i], d[i], 1 if i == 0 else 2, dt),
+                          ConvPReLU(d[i], d[i], 1, dt))
+            for i in range(c.pyramid_level)
+        ])
+
+        fused = c.fused_dim
+        self.cross_scale_feature_fusion = CrossScaleFeatureFusion(
+            tuple(d[1:]), fused, dt)
+        self.feat_enhance_transformer = nn.ModuleList([
+            RefineBottleneck(fused, c.enhance_window, s, c.num_heads,
+                             c.mlp_ratio, dt)
+            for s in (0, c.enhance_window // 2)
+        ])
+        self.local_motion_atmformer = nn.ModuleList([
+            ATMFormer(fused, c.local_window, s, c.num_heads, c.mlp_ratio, dt)
+            for s in (0, c.local_window // 2)
+        ])
+        n_motion = 4 * 2  # 2 blocks x (dx, dy) x 2 frames
+        lm_hidden = int(2 * fused * c.local_mlp_hidden_ratio)
+        self.local_motion_mlp = nn.Sequential(
+            ConvPReLU(2 * fused + n_motion, lm_hidden, 1, dt),
+            ConvPReLU(lm_hidden, lm_hidden, 1, dt),
+            Conv2d(lm_hidden, mo, 1, dtype=dt),
+        )
+
+        lfd = c.last_feat_dim
+        self.last_feat_extract = nn.Sequential(
+            ConvPReLU(d[-1], lfd, 2, dt), ConvPReLU(lfd, lfd, 1, dt))
+        gdim = c.global_dim
+        self.global_feature_fusion = CrossScaleFeatureFusion(
+            (d[-2], d[-1], lfd), gdim, dt)
+        self.global_motion_atmformer = nn.ModuleList([
+            ATMFormer(gdim, c.global_window, s, c.num_heads, c.mlp_ratio, dt)
+            for s in (0, c.global_window // 2)
+        ])
+        self.global_motion_mlp = nn.Sequential(
+            ConvPReLU(2 * gdim + n_motion, c.global_mlp_hidden, 1, dt),
+            ConvPReLU(c.global_mlp_hidden, c.global_mlp_hidden, 1, dt),
+            Conv2d(c.global_mlp_hidden, mo, 1, dtype=dt),
+        )
+
+        fd1, fd2, fd3 = c.decoder_dims
+        self.upsample_pyramid = nn.ModuleList([
+            nn.Sequential(Deconv2x(2 * fd1 + mo, fd1 + mo, dt),
+                          ConvPReLU(fd1 + mo, fd1 + mo, 1, dt),
+                          Conv2d(fd1 + mo, fd1 + mo, 3, dtype=dt)),
+            nn.Sequential(PReLU(fd1 + mo), Deconv2x(fd1 + mo, fd2 + mo, dt),
+                          ConvPReLU(fd2 + mo, fd2 + mo, 1, dt),
+                          Conv2d(fd2 + mo, fd2 + mo, 3, dtype=dt)),
+            nn.Sequential(PReLU(fd2 + mo), Deconv2x(fd2 + mo, fd3 + mo, dt),
+                          ConvPReLU(fd3 + mo, fd3 + mo, 1, dt),
+                          Conv2d(fd3 + mo, fd3 + mo, 3, dtype=dt)),
+        ])
+
+        hid = c.refine_hidden
+        self.proj = ConvPReLU(fd3 + mo + 15, hid, 1, dt)  # feat + 5 images
+        self.down1 = nn.Sequential(ConvPReLU(hid, hid, 2, dt))
+        self.down2 = nn.Sequential(ConvPReLU(hid + fd2, 2 * hid, 2, dt),
+                                   ConvPReLU(2 * hid, 2 * hid, 1, dt))
+        self.down3 = nn.Sequential(ConvPReLU(2 * hid + fd1, 4 * hid, 2, dt),
+                                   ConvPReLU(4 * hid, 4 * hid, 1, dt),
+                                   ConvPReLU(4 * hid, 4 * hid, 1, dt))
+        self.up1 = nn.Sequential(Deconv2x(4 * hid, 2 * hid, dt),
+                                 ConvPReLU(2 * hid, 2 * hid, 1, dt))
+        self.up2 = nn.Sequential(Deconv2x(4 * hid, 2 * hid, dt),
+                                 ConvPReLU(2 * hid, hid, 1, dt))
+        self.up3 = nn.Sequential(Deconv2x(2 * hid, hid, dt))
+        self.refine_head = nn.Sequential(ConvPReLU(2 * hid, hid, 1, dt),
+                                         ConvPReLU(hid, 3, 1, dt))
+
+        if generator is None:
+            generator = torch.Generator().manual_seed(0)
+        reset_parameters(self, generator)
+
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _warp_blend(im0, im1, flow0, flow1, occ):
+        """(I_t, I_t_0, I_t_1): one pair warp, then the occlusion blend."""
+        w0, w1 = flow_warp_pair(im0, im1, flow0, flow1)
+        return occ * w0 + (1 - occ) * w1, w0, w1
+
+    def shared_feat_extraction(self, x):
+        """[2B, H, W, 3] -> coarsest feature + [1/2, 1/4, 1/8] features."""
+        feats = []
+        for i, stage in enumerate(self.feat_extracts):
+            x = stage(x)
+            if i != 0:
+                feats.append(x)
+        return x, feats
+
+    def shared_feat_enhancement(self, x):
+        for blk in self.feat_enhance_transformer:
+            x = blk(x)
+        return x
+
+    def _motion(self, blocks, head, feat):
+        """Two ATMFormers + a motion head on [2B, h, w, C] tokens."""
+        B = feat.shape[0] // 2
+        chunks = []
+        for blk in blocks:
+            feat, m = blk(feat)
+            chunks.append(torch.cat([m[:B], m[B:]], -1))
+        feat_cat = torch.cat([feat[:B], feat[B:]], -1)
+        out = head(torch.cat(chunks + [feat_cat], -1))
+        return out, feat
+
+    def estimate_local_motion(self, feat):
+        """Fused 1/8 tokens -> (flow0, flow1, occ, tokens, head output)."""
+        out, feat = self._motion(self.local_motion_atmformer,
+                                 self.local_motion_mlp, feat)
+        return (*_split_head(out), feat, out)
+
+    def estimate_global_motion(self, x, feat_scale_level):
+        """Coarsest encoder feature -> 1/16 flows and occlusion."""
+        feat_ = self.last_feat_extract(x)
+        feat_ = self.global_feature_fusion(
+            [feat_scale_level[1], feat_scale_level[2], feat_])
+        out, _ = self._motion(self.global_motion_atmformer,
+                              self.global_motion_mlp, feat_)
+        return _split_head(out)
+
+    def residual_refinement(self, feat, im0, I_t_0, im1, I_t_1, I_t, skips):
+        dt = self.cfg.dtype
+        cat0 = torch.cat([feat.to(dt)] + [t.to(dt) for t in
+                                          (im0, I_t_0, im1, I_t_1, I_t)], -1)
+        feat0 = self.proj(cat0)
+        feat1 = self.down1(feat0)
+        feat2 = self.down2(torch.cat([feat1, skips[1]], -1))
+        feat3 = self.down3(torch.cat([feat2, skips[0]], -1))
+        cat2 = torch.cat([self.up1(feat3), feat2], -1)
+        cat1 = torch.cat([self.up2(cat2), feat1], -1)
+        cat_h = torch.cat([self.up3(cat1), feat0], -1)
+        return 2 * torch.sigmoid(self.refine_head(cat_h)) - 1
+
+    # ------------------------------------------------------------------
+    def forward(self, im0, im1, global_motion: bool = True,
+                ensemble_global_motion: bool = False):
+        if ensemble_global_motion:
+            raise NotImplementedError(
+                "the multiscale global-motion ensemble is not ported yet")
+        c = self.cfg
+        im0 = im0.float().contiguous()
+        im1 = im1.float().contiguous()
+        B = im0.shape[0]
+        im0_list: List[torch.Tensor] = [im0]
+        im1_list: List[torch.Tensor] = [im1]
+        im_t_list: List[torch.Tensor] = []
+        im0_warped_list: List[torch.Tensor] = []
+        im1_warped_list: List[torch.Tensor] = []
+        with span("encoder"):
+            for _ in range(c.pyramid_level - 1):
+                im0_list.append(ops.downsample_2x(im0_list[-1]))
+                im1_list.append(ops.downsample_2x(im1_list[-1]))
+            x, feat_scale_level = self.shared_feat_extraction(
+                torch.cat([im0, im1], 0).to(c.dtype))
+            feat = self.cross_scale_feature_fusion(feat_scale_level)
+
+        if global_motion:
+            with span("global_motion"):
+                gf0, gf1, gocc1 = self.estimate_global_motion(
+                    x, feat_scale_level)
+                I_t, I_t_0, I_t_1 = self._warp_blend(
+                    ops.downsample_2x(im0_list[-1]),
+                    ops.downsample_2x(im1_list[-1]), gf0, gf1, gocc1)
+                im0_warped_list.insert(0, I_t_0)
+                im1_warped_list.insert(0, I_t_1)
+                im_t_list.insert(0, I_t)
+            with span("prealign"):
+                gf0 = ops.upsample_flow(gf0, 2)
+                gf1 = ops.upsample_flow(gf1, 2)
+                # pre-align the fused tokens and the whole image pyramid
+                feat = torch.cat([flow_warp(feat[:B], gf0),
+                                  flow_warp(feat[B:], gf1)], 0)
+                for i in reversed(range(c.pyramid_level)):
+                    im0_list[i], im1_list[i] = flow_warp_pair(
+                        im0_list[i], im1_list[i], gf0, gf1)
+                    if i != 0:
+                        gf0 = ops.upsample_flow(gf0, 2)
+                        gf1 = ops.upsample_flow(gf1, 2)
+
+        with span("local_motion"):
+            flow0, flow1, occ1, feat, out = self.estimate_local_motion(feat)
+        with span("enhance"):
+            feat = self.shared_feat_enhancement(feat)
+            feat = torch.cat([feat[:B], feat[B:]], -1)  # [B, h, w, 2C]
+
+        with span("decoder"):
+            I_t, I_t_0, I_t_1 = self._warp_blend(
+                im0_list[-1], im1_list[-1], flow0, flow1, occ1)
+            im0_warped_list.insert(0, I_t_0)
+            im1_warped_list.insert(0, I_t_1)
+            im_t_list.insert(0, I_t)
+            fd1 = c.decoder_dims[0]
+            feat = torch.cat([flow_warp(feat[..., :fd1], flow0),
+                              flow_warp(feat[..., fd1:2 * fd1], flow1),
+                              out], -1)
+            skips = []
+            mo = c.motion_out_dim
+            for stage, scale in zip(self.upsample_pyramid, (2, 1, 0)):
+                feat = stage(feat)
+                flow0, flow1, occ1 = _split_head(feat[..., -mo:])
+                if scale != 0:
+                    skips.append(feat[..., :-mo])
+                I_t, I_t_0, I_t_1 = self._warp_blend(
+                    im0_list[scale], im1_list[scale], flow0, flow1, occ1)
+                im0_warped_list.insert(0, I_t_0)
+                im1_warped_list.insert(0, I_t_1)
+                im_t_list.insert(0, I_t)
+
+        with span("refine"):
+            residual = self.residual_refinement(feat, im0, I_t_0, im1,
+                                                I_t_1, I_t, skips)
+            I_t = torch.clamp(I_t + residual.float(), 0.0, 1.0)
+        return {
+            "I_t": I_t,
+            "im_t_list": im_t_list,  # fine -> coarse
+            "im0_warped_list": im0_warped_list,
+            "im1_warped_list": im1_warped_list,
+            "opt_flow_0": flow0,
+            "opt_flow_1": flow1,
+            "I_t_0": I_t_0,
+            "I_t_1": I_t_1,
+            "occ_mask1": occ1,
+            "occ_mask2": 1 - occ1,
+        }

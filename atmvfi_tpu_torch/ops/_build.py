@@ -1,0 +1,129 @@
+"""Build the CUDA kernels of `csrc/` into one shared library, on first use.
+
+Every `csrc/*.cu` is compiled by its own `nvcc` process (all started
+together) for `sm_90a`, then linked into one shared library with a
+plain C interface, which is loaded with `ctypes`. The library lands in
+`atmvfi_tpu_torch/_build/` (git-ignored) under a name that hashes the
+sources and flags, so an edited source is rebuilt and an unchanged one
+is reused. A failed build or load raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_lib = None
+_lock = threading.Lock()
+build_seconds = None  # wall time of the build this process ran, if any
+ptxas_log = ""
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+
+
+def _sources():
+    srcs = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC}")
+    return srcs
+
+
+def _digest(srcs) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+        with open(s, "rb") as f:
+            h.update(os.path.basename(s).encode())
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _build(srcs, out_path: str) -> None:
+    global build_seconds, ptxas_log
+    nvcc = _nvcc()
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs, procs = [], []
+        for s in srcs:
+            obj = os.path.join(tmp, os.path.basename(s) + ".o")
+            objs.append(obj)
+            procs.append((s, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", s, "-o", obj],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )))
+        logs, failed = [], []
+        for s, p in procs:
+            out, _ = p.communicate()
+            logs.append(f"== {os.path.basename(s)}\n{out}")
+            if p.returncode != 0:
+                failed.append(s)
+        ptxas_log = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{ptxas_log}")
+        tmp_so = os.path.join(tmp, "lib.so")
+        link = subprocess.run(
+            [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+             *objs, "-o", tmp_so], capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stderr}")
+        os.replace(tmp_so, out_path)  # atomic: readers see all or nothing
+    build_seconds = time.perf_counter() - t0
+
+
+def _declare(lib) -> None:
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for dt in ("f32", "bf16"):
+        fn = getattr(lib, f"atm_block_{dt}")
+        # x, wqkv, wproj, bproj, ln_g, ln_b, rel, mask, mask_windows,
+        # xn, qkv, app, y, motion, BW, N, C, heads, swap, scale, stream
+        fn.argtypes = [P, P, P, P, P, P, P, P, I, P, P, P, P, P,
+                       I, I, I, I, I, F, P]
+        fn.restype = I
+        fn = getattr(lib, f"warp_{dt}")
+        # img0, img1, flow0, flow1, out0, out1, n_img, B, H, W, C,
+        # in_pixel_stride, stream
+        fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, ctypes.c_int64, P]
+        fn.restype = I
+
+
+def load_library():
+    """Return the loaded kernel library, building it first if needed."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            srcs = _sources()
+            path = os.path.join(BUILD_DIR,
+                                f"libatmvfi_kernels_{_digest(srcs)}.so")
+            if not os.path.exists(path):
+                _build(srcs, path)
+            lib = ctypes.CDLL(path)
+            _declare(lib)
+            _lib = lib
+        return _lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise when a kernel entry point returned a CUDA error code."""
+    if rc != 0:
+        name = load_library().cuda_error_name
+        name.restype = ctypes.c_char_p
+        name.argtypes = [ctypes.c_int]
+        raise RuntimeError(f"{what}: CUDA error {rc} "
+                           f"({name(rc).decode()})")

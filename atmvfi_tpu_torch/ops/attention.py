@@ -1,0 +1,74 @@
+"""Fused ATM transformer-block core: the plain PyTorch version.
+
+Counterpart of `atmvfi_tpu/ops/attention_pallas.py::_block_reference`
+(with `_packed_reference`), and the plain version of kernel K1
+(`ops.attention_cuda`). On packed windows x [BW, N, C]:
+
+    xn = LayerNorm(x)                     (f32 statistics, eps 1e-5)
+    q = xn Wq^T, kv = xs Wkv^T            (xs = xn of the partner window
+                                           (i + BW/2) mod BW when
+                                           swap_halves, else xn)
+    p = softmax(q k^T * scale + mask)     per head, in f32
+    app = p v;  motion = sum_k p * rel    (motion from the f32 p)
+    y = xn + app Wproj^T + bproj          (residual onto norm1(x))
+
+Weights are in nn.Linear layout [out, in]; `wkv` stacks k over v.
+`mask` is [M, N, N] with BW % M == 0 (window w uses mask[w % M]) or
+None; `rel` is [2, N, N] or None (no motion). Returns (y [BW, N, C],
+motion [BW, N, 2h] as (mx, my) per head, or None), both in x.dtype.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+
+def layer_norm_f32(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+                   eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last dim with f32 statistics; returns f32."""
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    return (xf - mu) * torch.rsqrt(var + eps) * g.float() + b.float()
+
+
+def window_attention(q, kv, scale: float, rel: Optional[torch.Tensor],
+                     mask: Optional[torch.Tensor], num_heads: int):
+    """Attention + motion moment on packed q [BW, N, C], kv [BW, N, 2C]."""
+    BW, N, C = q.shape
+    h = num_heads
+    hd = C // h
+    qh = q.reshape(BW, N, h, hd).transpose(1, 2)
+    kh = kv[..., :C].reshape(BW, N, h, hd).transpose(1, 2)
+    vh = kv[..., C:].reshape(BW, N, h, hd).transpose(1, 2)
+    attn = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
+    if mask is not None:
+        M = mask.shape[0]
+        attn = (attn.reshape(BW // M, M, h, N, N)
+                + mask.float()[None, :, None]).reshape(BW, h, N, N)
+    p = torch.softmax(attn, dim=-1)  # f32
+    out = torch.matmul(p.to(q.dtype), vh)  # [BW, h, N, hd]
+    out = out.transpose(1, 2).reshape(BW, N, C)
+    motion = None
+    if rel is not None:
+        motion = torch.einsum("bhqk,dqk->bqhd", p, rel.float())
+        motion = motion.reshape(BW, N, 2 * h).to(q.dtype)
+    return out, motion
+
+
+def atm_block_reference(x, wq, wkv, wproj, bproj, ln_g, ln_b, scale: float,
+                        rel: Optional[torch.Tensor],
+                        mask: Optional[torch.Tensor], num_heads: int,
+                        swap_halves: bool):
+    """Plain fused-block core; see the module docstring."""
+    BW, N, C = x.shape
+    dt = x.dtype
+    xn = layer_norm_f32(x, ln_g, ln_b).to(dt)
+    xs = torch.roll(xn, -(BW // 2), 0) if swap_halves else xn
+    q = (xn.reshape(-1, C) @ wq.to(dt).t()).reshape(BW, N, C)
+    kv = (xs.reshape(-1, C) @ wkv.to(dt).t()).reshape(BW, N, 2 * C)
+    app, motion = window_attention(q, kv, scale, rel, mask, num_heads)
+    out = (app.reshape(-1, C) @ wproj.to(dt).t()).reshape(BW, N, C)
+    out = out + bproj.to(dt)
+    return (xn + out).to(dt), motion
