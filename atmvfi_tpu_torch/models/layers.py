@@ -6,9 +6,14 @@ checkpoint (or a JAX one through `convert.params_from_jax`) loads with
 `strict=True`. Parameters stay f32; each module casts its input and
 weights to its working `dtype` at use, as the JAX modules do.
 
-Activations are NHWC tensors. The convolutions hand cuDNN an NCHW view
-of them (`permute(0, 3, 1, 2)`), which is channels_last in memory, so
-no layout copy is made around a convolution.
+Activations are NHWC tensors. The layers that the JAX package runs
+through its conv kernels on the `conv_impl="auto"` path run the port's
+kernels, each as one call with bias and PReLU fused: `ConvPReLU` (K3 at
+stride 1, K4 at stride 2, K5 over several sources), `PlainConv3x3` (K3
+without PReLU) and `Deconv2x` (K6). The other convolutions (strided and
+dilated fusion convs, 1x1 heads, depthwise MLP convs), which the JAX
+package leaves to XLA, stay `Conv2d`: cuDNN on an NCHW view of the NHWC
+tensor (`permute(0, 3, 1, 2)`, channels_last in memory, no copy).
 
 The two transformer blocks run kernel K1 (`ops.attention_cuda.
 atm_block`) the way the JAX "block" mode does: ATMFormer with the frame
@@ -27,6 +32,8 @@ import torch.nn.functional as F
 from atmvfi_tpu_torch import ops
 from atmvfi_tpu_torch.ops.attention import layer_norm_f32
 from atmvfi_tpu_torch.ops.attention_cuda import atm_block
+from atmvfi_tpu_torch.ops.conv_cuda import conv3x3, conv3x3_multi, conv3x3_s2
+from atmvfi_tpu_torch.ops.deconv_cuda import deconv2x
 
 LN_EPS = 1e-5
 
@@ -111,17 +118,41 @@ class PReLU(nn.Module):
 
 
 class ConvPReLU(nn.Sequential):
-    """conv3x3 + PReLU (reference `conv` helper: `.0` conv, `.1` PReLU)."""
+    """conv3x3 + PReLU (reference `conv` helper: `.0` conv, `.1` PReLU),
+    run as one kernel call: K3 at stride 1, K4 at stride 2."""
 
     def __init__(self, cin: int, cout: int, stride: int = 1,
                  dtype: torch.dtype = torch.float32):
         super().__init__(Conv2d(cin, cout, 3, stride, 1, dtype=dtype),
                          PReLU(cout))
 
+    def forward(self, x):
+        conv = self[0]
+        fn = conv3x3 if conv.stride == 1 else conv3x3_s2
+        return fn(x.to(conv.dtype), conv.weight, conv.bias, self[1].weight)
+
+    def forward_sources(self, sources):
+        """K5: the stride-1 conv over the channel concat of `sources`
+        (f32 or the working type), which is never built."""
+        conv = self[0]
+        return conv3x3_multi(sources, conv.weight, conv.bias, self[1].weight,
+                             conv.dtype)
+
+
+class PlainConv3x3(Conv2d):
+    """Bare 3x3 stride-1 conv + bias (the JAX `PlainConv`), run by K3
+    with the PReLU off."""
+
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32):
+        super().__init__(cin, cout, 3, dtype=dtype)
+
+    def forward(self, x):
+        return conv3x3(x.to(self.dtype), self.weight, self.bias)
+
 
 class ConvTranspose2x(nn.Module):
-    """ConvTranspose(k=2, s=2), NHWC, nn.ConvTranspose2d parameters
-    (weight [Cin, Cout, 2, 2]):
+    """Parameters of a ConvTranspose(k=2, s=2) (nn.ConvTranspose2d
+    layout, weight [Cin, Cout, 2, 2]), run by `Deconv2x`:
     out[2h+dy, 2w+dx, o] = sum_i x[h, w, i] * weight[i, o, dy, dx] + b[o]."""
 
     def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32):
@@ -135,18 +166,17 @@ class ConvTranspose2x(nn.Module):
         uniform_(self.weight, bound, gen)
         uniform_(self.bias, bound, gen)
 
-    def forward(self, x):
-        dt = self.dtype
-        y = F.conv_transpose2d(x.to(dt).permute(0, 3, 1, 2),
-                               self.weight.to(dt), self.bias.to(dt), stride=2)
-        return y.permute(0, 2, 3, 1)
-
 
 class Deconv2x(nn.Sequential):
-    """ConvTranspose(k=2, s=2) + PReLU (reference `deconv` helper)."""
+    """ConvTranspose(k=2, s=2) + PReLU (reference `deconv` helper), run
+    as one K6 call with the PReLU fused."""
 
     def __init__(self, cin: int, cout: int, dtype: torch.dtype = torch.float32):
         super().__init__(ConvTranspose2x(cin, cout, dtype), PReLU(cout))
+
+    def forward(self, x):
+        up = self[0]
+        return deconv2x(x.to(up.dtype), up.weight, up.bias, self[1].weight)
 
 
 class DWConv(nn.Module):

@@ -1,11 +1,18 @@
 """ATM-VFI network, two-frame forward (base and lite presets).
 
 Counterpart of `atmvfi_tpu/models/network.py::Network.__call__` on its
-`conv_impl="xla"`, `tail_planar="off"` path: convolutions and deconvs
-are cuDNN calls (`F.conv2d` / `F.conv_transpose2d`) where the JAX
-package used `lax.conv`; the six transformer blocks run kernel K1 and
-every backward warp runs kernel K2 (`ops.warp_cuda`), each of them the
-plain PyTorch version on the CPU.
+default `conv_impl="auto"` path (with `tail_planar="off"`): every layer
+that the JAX package runs through a conv kernel runs the port's kernel
+-- each ConvPReLU as K3 (stride 1) or K4 (stride 2), the decoder's
+plain 3x3 convs as K3, every Deconv2x as K6, and the two convs that
+read the f32 images as K5 (the encoder's first conv on the stacked
+frames, the refinement proj on [decoder feature || five images]) --
+with bias and PReLU fused. The layers that the JAX package leaves to
+XLA stay cuDNN (`F.conv2d`): the strided and dilated fusion convs and
+their 1x1 projection, the 1x1 motion-head outputs and the depthwise MLP
+convs. The six transformer blocks run kernel K1 and every backward warp
+runs kernel K2 (`ops.warp_cuda`). On the CPU each kernel wrapper runs
+its plain PyTorch version.
 
 Frames are stacked on the batch axis so the shared towers run once on
 [2B, ...]. Mixed precision as in the JAX package: images, flows,
@@ -27,6 +34,7 @@ from atmvfi_tpu_torch.models.layers import (
     Conv2d,
     ConvPReLU,
     Deconv2x,
+    PlainConv3x3,
     PReLU,
     RefineBottleneck,
     reset_parameters,
@@ -107,13 +115,13 @@ class Network(nn.Module):
         self.upsample_pyramid = nn.ModuleList([
             nn.Sequential(Deconv2x(2 * fd1 + mo, fd1 + mo, dt),
                           ConvPReLU(fd1 + mo, fd1 + mo, 1, dt),
-                          Conv2d(fd1 + mo, fd1 + mo, 3, dtype=dt)),
+                          PlainConv3x3(fd1 + mo, fd1 + mo, dt)),
             nn.Sequential(PReLU(fd1 + mo), Deconv2x(fd1 + mo, fd2 + mo, dt),
                           ConvPReLU(fd2 + mo, fd2 + mo, 1, dt),
-                          Conv2d(fd2 + mo, fd2 + mo, 3, dtype=dt)),
+                          PlainConv3x3(fd2 + mo, fd2 + mo, dt)),
             nn.Sequential(PReLU(fd2 + mo), Deconv2x(fd2 + mo, fd3 + mo, dt),
                           ConvPReLU(fd3 + mo, fd3 + mo, 1, dt),
-                          Conv2d(fd3 + mo, fd3 + mo, 3, dtype=dt)),
+                          PlainConv3x3(fd3 + mo, fd3 + mo, dt)),
         ])
 
         hid = c.refine_hidden
@@ -144,11 +152,15 @@ class Network(nn.Module):
         return occ * w0 + (1 - occ) * w1, w0, w1
 
     def shared_feat_extraction(self, x):
-        """[2B, H, W, 3] -> coarsest feature + [1/2, 1/4, 1/8] features."""
+        """[2B, H, W, 3] f32 frames -> coarsest feature + [1/2, 1/4, 1/8]
+        features. The first conv (K5) reads the f32 frames and rounds
+        them to the working type as it loads them."""
         feats = []
         for i, stage in enumerate(self.feat_extracts):
-            x = stage(x)
-            if i != 0:
+            if i == 0:
+                x = stage[1](stage[0].forward_sources([x]))
+            else:
+                x = stage(x)
                 feats.append(x)
         return x, feats
 
@@ -184,10 +196,8 @@ class Network(nn.Module):
         return _split_head(out)
 
     def residual_refinement(self, feat, im0, I_t_0, im1, I_t_1, I_t, skips):
-        dt = self.cfg.dtype
-        cat0 = torch.cat([feat.to(dt)] + [t.to(dt) for t in
-                                          (im0, I_t_0, im1, I_t_1, I_t)], -1)
-        feat0 = self.proj(cat0)
+        # K5 over [decoder feature || five f32 images]: no concat is built
+        feat0 = self.proj.forward_sources([feat, im0, I_t_0, im1, I_t_1, I_t])
         feat1 = self.down1(feat0)
         feat2 = self.down2(torch.cat([feat1, skips[1]], -1))
         feat3 = self.down3(torch.cat([feat2, skips[0]], -1))
@@ -216,7 +226,7 @@ class Network(nn.Module):
                 im0_list.append(ops.downsample_2x(im0_list[-1]))
                 im1_list.append(ops.downsample_2x(im1_list[-1]))
             x, feat_scale_level = self.shared_feat_extraction(
-                torch.cat([im0, im1], 0).to(c.dtype))
+                torch.cat([im0, im1], 0))
             feat = self.cross_scale_feature_fusion(feat_scale_level)
 
         if global_motion:

@@ -101,6 +101,20 @@ def _declare(lib) -> None:
         # in_pixel_stride, stream
         fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, ctypes.c_int64, P]
         fn.restype = I
+        for name in ("conv3x3", "conv3x3s2", "conv3x3_multi"):
+            fn = getattr(lib, f"{name}_{dt}")
+            # source descriptors (int64 x 5 each), nsrc, B, H, W, stride,
+            # packed weight, Kp, bias, slope, out, Cout, out pixel stride,
+            # stream
+            fn.argtypes = [ctypes.POINTER(ctypes.c_int64), I, I, I, I, I, P,
+                           I, P, P, P, I, ctypes.c_int64, P]
+            fn.restype = I
+        fn = getattr(lib, f"deconv2x_{dt}")
+        # x, pixel stride, C, x is f32, x vec, B, H, W, packed weight, Kp,
+        # bias, slope, out, Cout, out pixel stride, stream
+        fn.argtypes = [P, ctypes.c_int64, I, I, I, I, I, I, P, I, P, P, P, I,
+                       ctypes.c_int64, P]
+        fn.restype = I
 
 
 def load_library():

@@ -1,0 +1,182 @@
+"""Kernel K3-K5 wrappers: 3x3 conv + bias (+ PReLU) (`csrc/conv3x3.cu`).
+
+* `conv3x3` (K3) replaces `atmvfi_tpu/ops/conv_pallas.py::conv3x3_hcw_op`:
+  stride 1, 'same' zero padding.
+* `conv3x3_s2` (K4) replaces `conv3x3s2_hcw_op`: stride 2, pad 1, out
+  ceil(H/2) x ceil(W/2).
+* `conv3x3_multi` (K5) replaces `conv3x3_hcw_planes_op` and
+  `conv3x3_planes_only_op`: the conv over the channel concat of up to
+  six sources, which is never built.
+
+For CPU tensors each runs the plain version `ops.conv.conv3x3`; for
+CUDA tensors it launches the kernel or raises. `<fn>.calls` counts the
+calls on any device, `<fn>.launches` the kernel launches (one per call
+on the card).
+
+Activations are NHWC with contiguous channels; the pixel stride may be
+larger than C, so a channel slice (`feat[..., :-5]`) is read in place.
+Sources may be f32 or bf16: an f32 source in a bf16 conv is rounded as
+it is loaded. On the card an output whose channel count is not a
+multiple of 8 (389, 197, 101, 3) is a channel view of a map whose pixel
+stride is rounded up to 8, so the next kernel reads it with 16-byte
+vectors (`vec_readable`); on the CPU outputs are contiguous.
+
+`weight` is the f32 OIHW parameter; the wrapper packs it once per call
+into the working type as [9, Cout, Kp] (Kp = channels rounded up to 8,
+zeros beyond) -- the cast every conv paid anyway. Bias and slope are
+read as f32.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Sequence
+
+import torch
+
+from atmvfi_tpu_torch.ops import _build
+from atmvfi_tpu_torch.ops.conv import conv3x3 as conv3x3_plain
+
+_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+MAX_SOURCES = 6
+
+
+def pixel_stride(t: torch.Tensor) -> int:
+    """Pixel stride of an NHWC tensor whose pixels lie at one stride with
+    contiguous channels (a channel slice of a dense map qualifies)."""
+    if t.dim() != 4:
+        raise ValueError(f"expected NHWC, got shape {tuple(t.shape)}")
+    B, H, W, C = t.shape
+    # the stride of the innermost spatial dim that is larger than 1
+    ps = next((t.stride(d) // n for d, n in ((2, 1), (1, W), (0, H * W))
+               if t.shape[d] > 1), C)
+    want = (H * W * ps, W * ps, ps, 1)
+    for size, got, exp in zip(t.shape, t.stride(), want):
+        if size > 1 and got != exp:
+            raise ValueError("kernel needs NHWC pixels at one stride with "
+                             f"contiguous channels, got {t.stride()} for "
+                             f"{tuple(t.shape)}")
+    if ps < C:
+        raise ValueError(f"pixel stride {ps} < channels {C}")
+    return ps
+
+
+def vec_readable(t: torch.Tensor, ps: int) -> bool:
+    """Whether the kernels may read a bf16 source as 16-byte vectors:
+    pixel stride a multiple of 8, a 16-byte aligned pointer, and the
+    storage holding channels up to C rounded up to 8 in every pixel (the
+    lanes at or past C are zeroed in registers)."""
+    if t.dtype != torch.bfloat16 or ps % 8 or t.data_ptr() % 16:
+        return False
+    last = t.storage_offset() + (t.numel() // t.shape[3] - 1) * ps
+    return last + -(-t.shape[3] // 8) * 8 <= t.untyped_storage().nbytes() // 2
+
+
+def empty_nhwc(B: int, H: int, W: int, C: int, dtype, device):
+    """[B, H, W, C] output whose pixel stride is C rounded up to 8."""
+    cp = -(-C // 8) * 8
+    return torch.empty((B, H, W, cp), dtype=dtype, device=device)[..., :C]
+
+
+def pack_weight(view_shape, src: torch.Tensor, kin: int, dtype):
+    """[*view_shape[:-1], Kp] zero-padded pack of `src` (last dim kin,
+    Kp = kin rounded up to 8), cast to `dtype` in one copy."""
+    kp = (kin + 7) // 8 * 8
+    shape = (*view_shape, kp)
+    alloc = torch.zeros if kp != kin else torch.empty
+    w = alloc(shape, dtype=dtype, device=src.device)
+    w[..., :kin].copy_(src)
+    return w, kp
+
+
+def _vec(v: Optional[torch.Tensor], cout: int, what: str, device):
+    """A per-channel vector (bias, slope) as contiguous f32 on `device`."""
+    if v is None:
+        return None
+    if tuple(v.shape) != (cout,):
+        raise ValueError(f"{what} must be [{cout}], got {tuple(v.shape)}")
+    if v.device != device:
+        raise ValueError(f"{what} on {v.device}, input on {device}")
+    return v.float().contiguous()
+
+
+def _launch(entry: str, sources, weight, bias, slope, stride: int, dtype):
+    if dtype not in _DTYPES:
+        raise TypeError(f"conv kernel works in f32/bf16, got {dtype}")
+    if not 1 <= len(sources) <= MAX_SOURCES:
+        raise ValueError(f"1 to {MAX_SOURCES} sources, got {len(sources)}")
+    dev = sources[0].device
+    B, H, W, _ = sources[0].shape
+    desc = (ctypes.c_int64 * (5 * len(sources)))()
+    ctot = 0
+    for i, s in enumerate(sources):
+        if s.dtype not in _DTYPES:
+            raise TypeError(f"conv source {i}: f32/bf16, got {s.dtype}")
+        if s.device != dev or tuple(s.shape[:3]) != (B, H, W):
+            raise ValueError(f"conv source {i} {tuple(s.shape)} on {s.device} "
+                             f"does not match {(B, H, W)} on {dev}")
+        ps = pixel_stride(s)
+        desc[5 * i:5 * i + 5] = [s.data_ptr(), ps, s.shape[3],
+                                 int(s.dtype == torch.float32),
+                                 int(vec_readable(s, ps))]
+        ctot += s.shape[3]
+    cout = weight.shape[0]
+    if tuple(weight.shape) != (cout, ctot, 3, 3):
+        raise ValueError(f"weight must be [Cout, {ctot}, 3, 3], got "
+                         f"{tuple(weight.shape)}")
+    if weight.device != dev:
+        raise ValueError("weight and input on different devices")
+    w, kp = pack_weight((3, 3, cout), weight.permute(2, 3, 0, 1), ctot,
+                        dtype)
+    b = _vec(bias, cout, "bias", dev)
+    a = _vec(slope, cout, "slope", dev)
+    out = empty_nhwc(B, (H - 1) // stride + 1, (W - 1) // stride + 1, cout,
+                     dtype, dev)
+    fn = getattr(_build.load_library(), f"{entry}_{_DTYPES[dtype]}")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(desc, len(sources), B, H, W, stride, w.data_ptr(), kp,
+                b.data_ptr(), 0 if a is None else a.data_ptr(),
+                out.data_ptr(), cout, out.stride(2), stream)
+    _build.check(rc, f"{entry} kernel launch")
+    return out
+
+
+def _run(fn, entry: str, sources, weight, bias, slope, stride, dtype):
+    fn.calls += 1
+    dev = sources[0].device
+    if dev.type == "cpu":
+        return conv3x3_plain(sources, weight, bias, slope, stride, dtype)
+    if dev.type != "cuda":
+        raise ValueError(f"no conv kernel for device {dev}")
+    out = _launch(entry, sources, weight, bias, slope, stride, dtype)
+    fn.launches += 1
+    return out
+
+
+def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+            slope: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K3: stride-1 3x3 conv + bias (+ PReLU) in x's type."""
+    return _run(conv3x3, "conv3x3", [x], weight, bias, slope, 1, x.dtype)
+
+
+def conv3x3_s2(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+               slope: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K4: stride-2 3x3 conv + bias (+ PReLU) in x's type."""
+    return _run(conv3x3_s2, "conv3x3s2", [x], weight, bias, slope, 2,
+                x.dtype)
+
+
+def conv3x3_multi(sources: Sequence[torch.Tensor], weight: torch.Tensor,
+                  bias: torch.Tensor, slope: Optional[torch.Tensor] = None,
+                  dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """K5: stride-1 3x3 conv + bias (+ PReLU) over the channel concat of
+    `sources`, in `dtype` (the first source's type when None)."""
+    sources = list(sources)
+    dt = sources[0].dtype if dtype is None else dtype
+    return _run(conv3x3_multi, "conv3x3_multi", sources, weight, bias,
+                slope, 1, dt)
+
+
+for _fn in (conv3x3, conv3x3_s2, conv3x3_multi):
+    _fn.calls = 0
+    _fn.launches = 0

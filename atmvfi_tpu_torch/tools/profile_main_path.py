@@ -24,6 +24,7 @@ from collections import defaultdict
 STAGES = ("encoder", "global_motion", "prealign", "local_motion", "enhance",
           "decoder", "refine")
 FAMILIES = (  # first match wins
+    ("K3-K6 conv kernels", r"igemm_"),
     ("K1 atm_block", r"gemm_bf16_kernel|gemm_f32_kernel|attn_kernel"),
     ("K2 warp", r"warp_narrow_kernel|warp_wide_kernel"),
     ("conv (cuDNN)", r"conv|cudnn|fprop|dgrad|wgrad|implicit|nchw|nhwc"),

@@ -11,8 +11,10 @@ Phases, one JSON object per line:
   3. kernels: each kernel against its plain PyTorch version on the card,
      at the shapes of the main path (base model, 1080p input padded to
      1088x1920): max |d| (f32) and mean |d| (bf16), times with CUDA
-     events, the bound from bytes and operations, and for the warp the
-     time of F.grid_sample on the same work as a yardstick.
+     events, the bound from bytes and operations, and as a yardstick
+     the library call that computes the same function (F.grid_sample
+     for the warp; for the conv kernels K3-K6 the cuDNN conv + bias +
+     F.prelu that they replace), at every distinct conv site.
   4. main path: InterpolationPipeline.interpolate (base, bf16 towers,
      global motion on, seeded weights) on three 1080x1920 frame pairs;
      checks the output and the kernel launch counts, reports ms/frame.
@@ -41,8 +43,65 @@ PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 # warps are the 1/16 blend, 4 pyramid pre-aligns, the 1/8 blend and 3
 # decoder blends; the single warps the 2 token pre-aligns and the 2
 # decoder-input feature warps; K1 runs in 2 global, 2 local and 2
-# enhancement blocks
-PER_FORWARD = {"atm_block": 6, "flow_warp_pair": 9, "flow_warp": 4}
+# enhancement blocks; the conv kernels as CONV_SITES counts them
+PER_FORWARD = {"atm_block": 6, "flow_warp_pair": 9, "flow_warp": 4,
+               "conv3x3": 22, "conv3x3_s2": 7, "conv3x3_multi": 2,
+               "deconv2x": 6}
+
+# every conv-kernel site of the base main path at 1088x1920 (global
+# motion on; frames stacked, so the encoder runs on batch 2):
+# (wrapper, site, sources as (B, H, W, C, f32?), Cout, PReLU, launches
+# per forward). Deconv sources are the half-resolution inputs. A conv
+# source whose channel count is not a multiple of 8 is made as the
+# main path gives it: a kernel's output, at a pixel stride rounded up
+# to 8 (the deconvs read dense PReLU or concat outputs).
+_F, _X = (1088, 1920), (544, 960)
+CONV_SITES = [
+    ("conv3x3", "encoder 24->24", [(2, *_F, 24, 0)], 24, 1, 1),
+    ("conv3x3", "encoder 48->48", [(2, 544, 960, 48, 0)], 48, 1, 1),
+    ("conv3x3", "encoder 96->96", [(2, 272, 480, 96, 0)], 96, 1, 1),
+    ("conv3x3", "encoder 192->192", [(2, 136, 240, 192, 0)], 192, 1, 1),
+    ("conv3x3", "local head 776->576", [(1, 136, 240, 776, 0)], 576, 1, 1),
+    ("conv3x3", "local head 576->576", [(1, 136, 240, 576, 0)], 576, 1, 1),
+    ("conv3x3", "last_feat 288->288", [(2, 68, 120, 288, 0)], 288, 1, 1),
+    ("conv3x3", "global head 1352->768", [(1, 68, 120, 1352, 0)], 768, 1,
+     1),
+    ("conv3x3", "global head 768->768", [(1, 68, 120, 768, 0)], 768, 1, 1),
+    ("conv3x3", "decoder 1/4 389->389", [(1, 272, 480, 389, 0)], 389, 1, 1),
+    ("conv3x3", "decoder 1/4 389->389 plain", [(1, 272, 480, 389, 0)], 389,
+     0, 1),
+    ("conv3x3", "decoder 1/2 197->197", [(1, *_X, 197, 0)], 197, 1, 1),
+    ("conv3x3", "decoder 1/2 197->197 plain", [(1, *_X, 197, 0)], 197, 0,
+     1),
+    ("conv3x3", "decoder 1/1 101->101", [(1, *_F, 101, 0)], 101, 1, 1),
+    ("conv3x3", "decoder 1/1 101->101 plain", [(1, *_F, 101, 0)], 101, 0,
+     1),
+    ("conv3x3", "refine 128->128 1/4 (down2, up1)", [(1, 272, 480, 128, 0)],
+     128, 1, 2),
+    ("conv3x3", "refine down3 256->256", [(1, 136, 240, 256, 0)], 256, 1, 2),
+    ("conv3x3", "refine up2 128->64", [(1, *_X, 128, 0)], 64, 1, 1),
+    ("conv3x3", "refine head 128->64", [(1, *_F, 128, 0)], 64, 1, 1),
+    ("conv3x3", "refine head 64->3", [(1, *_F, 64, 0)], 3, 1, 1),
+    ("conv3x3_s2", "encoder 24->48", [(2, *_F, 24, 0)], 48, 1, 1),
+    ("conv3x3_s2", "encoder 48->96", [(2, *_X, 48, 0)], 96, 1, 1),
+    ("conv3x3_s2", "encoder 96->192", [(2, 272, 480, 96, 0)], 192, 1, 1),
+    ("conv3x3_s2", "last_feat 192->288", [(2, 136, 240, 192, 0)], 288, 1,
+     1),
+    ("conv3x3_s2", "refine down1 64->64", [(1, *_F, 64, 0)], 64, 1, 1),
+    ("conv3x3_s2", "refine down2 256->128", [(1, *_X, 256, 0)], 128, 1, 1),
+    ("conv3x3_s2", "refine down3 512->256", [(1, 272, 480, 512, 0)], 256, 1,
+     1),
+    ("conv3x3_multi", "encoder first conv, f32 frames 3->24",
+     [(2, *_F, 3, 1)], 24, 1, 1),
+    ("conv3x3_multi", "refine proj 101 + 5 f32 images -> 64",
+     [(1, *_F, 101, 0)] + [(1, *_F, 3, 1)] * 5, 64, 1, 1),
+    ("deconv2x", "decoder 773->389", [(1, 136, 240, 773, 0)], 389, 1, 1),
+    ("deconv2x", "decoder 389->197", [(1, 272, 480, 389, 0)], 197, 1, 1),
+    ("deconv2x", "decoder 197->101", [(1, *_X, 197, 0)], 101, 1, 1),
+    ("deconv2x", "refine up1 256->128", [(1, 136, 240, 256, 0)], 128, 1, 1),
+    ("deconv2x", "refine up2 256->128", [(1, 272, 480, 256, 0)], 128, 1, 1),
+    ("deconv2x", "refine up3 128->64", [(1, *_X, 128, 0)], 64, 1, 1),
+]
 
 
 def emit(obj) -> None:
@@ -245,6 +304,115 @@ def phase_kernels(torch):
     return results
 
 
+def phase_conv_kernels(torch):
+    """K3-K6 against their plain versions at every conv site of the main
+    path: f32 max |d| <= 1e-4, bf16 mean |d| <= 1e-3; bf16 times of the
+    kernel, the plain version and the library calls it replaces."""
+    import torch.nn.functional as F
+
+    from atmvfi_tpu_torch.ops import conv as plain
+    from atmvfi_tpu_torch.ops import conv_cuda, deconv_cuda
+    from atmvfi_tpu_torch.ops.conv_cuda import empty_nhwc
+
+    kernels = {"conv3x3": conv_cuda.conv3x3,
+               "conv3x3_s2": conv_cuda.conv3x3_s2,
+               "conv3x3_multi": conv_cuda.conv3x3_multi,
+               "deconv2x": deconv_cuda.deconv2x}
+    results = {k: [] for k in kernels}
+    for k in kernels:  # the site list covers one forward's launches
+        n = sum(site[-1] for site in CONV_SITES if site[0] == k)
+        if n != PER_FORWARD[k]:
+            raise AssertionError(f"CONV_SITES has {n} {k} launches, the "
+                                 f"forward {PER_FORWARD[k]}")
+    g = torch.Generator(device="cuda").manual_seed(4)
+    bf16 = torch.bfloat16
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g, device="cuda") * 2 - 1
+
+    for kind, site, shapes, cout, prelu, n in CONV_SITES:
+        deconv = kind == "deconv2x"
+        stride = 2 if kind == "conv3x3_s2" else 1
+        cin = sum(s[3] for s in shapes)
+        B, H, W = shapes[0][:3]
+        w = (rand(cin, cout, 2, 2) / (4 * cin) ** 0.5 if deconv
+             else rand(cout, cin, 3, 3) / (9 * cin) ** 0.5)
+        b = rand(cout) * 0.1
+        a = rand(cout) * 0.3 if prelu else None
+        base = [(rand(*s[:4]) * 0.5 + 0.5 if s[4] else rand(*s[:4]))
+                for s in shapes]
+        err = {}
+
+        def layout(x, dt):  # as the main path hands the source over
+            if deconv or x.shape[3] % 8 == 0:
+                return x.to(dt)
+            return empty_nhwc(*x.shape, dt, "cuda").copy_(x)
+
+        for dt in (torch.float32, bf16):
+            srcs = [x if s[4] else layout(x, dt) for x, s in zip(base, shapes)]
+            if deconv:
+                run = lambda: deconv_cuda.deconv2x(srcs[0], w, b, a)  # noqa
+                ref = lambda: plain.deconv2x(srcs[0], w, b, a)  # noqa
+            elif kind == "conv3x3_multi":
+                run = lambda: conv_cuda.conv3x3_multi(srcs, w, b, a, dt)  # noqa
+                ref = lambda: plain.conv3x3(srcs, w, b, a, 1, dt)  # noqa
+            else:
+                run = lambda: kernels[kind](srcs[0], w, b, a)  # noqa
+                ref = lambda: plain.conv3x3(srcs, w, b, a, stride)  # noqa
+            with torch.no_grad():
+                y, yr = run(), ref()
+                torch.cuda.synchronize()
+                d = (y.float() - yr.float()).abs()
+            err[dt] = (d.max().item(), d.mean().item())
+            if y.dtype != dt or not bool(torch.isfinite(y).all()):
+                raise AssertionError(f"{kind} {site}: bad output {y.dtype}")
+            del y, yr, d
+        dense = [x if s[4] else x.to(bf16) for x, s in zip(base, shapes)]
+
+        def library():  # the library calls the kernel replaces, on dense
+            # maps: casts, concat, cuDNN, bias, F.prelu
+            xs = [x.to(bf16) for x in dense]
+            x = (torch.cat(xs, -1) if len(xs) > 1 else xs[0]).permute(
+                0, 3, 1, 2)
+            if deconv:
+                y = F.conv_transpose2d(x, w.to(bf16), b.to(bf16), stride=2)
+            else:
+                y = F.conv2d(x, w.to(bf16), b.to(bf16), stride, 1)
+            return y if a is None else F.prelu(y, a.to(bf16))
+
+        big = B * H * W >= 500_000
+        reps = 5 if big else 20
+        with torch.no_grad():
+            ms, plain_ms, lib_ms = (cuda_ms(run, reps), cuda_ms(ref, reps),
+                                    cuda_ms(library, reps))
+        out_px = (4 * B * H * W if deconv
+                  else B * (-(-H // stride)) * (-(-W // stride)))
+        nbytes = (sum(x.numel() * x.element_size() for x in srcs)
+                  + 4 * (w.numel() + b.numel() + (a.numel() if prelu else 0))
+                  + 2 * out_px * cout)
+        flops = (2 * B * H * W * 4 * cout * cin if deconv
+                 else 2 * out_px * cout * 9 * cin)
+        b_ms, b_by = bound_ms(nbytes, flops, "bf16")
+        (f_max, _), (h_max, h_mean) = err[torch.float32], err[bf16]
+        rec = dict(phase="kernel", kernel=kind, site=site,
+                   sources=[list(s[:4]) + ["f32" if s[4] else "work"]
+                            for s in shapes], cout=cout, prelu=bool(prelu),
+                   per_forward=n, f32_max_abs_err=f_max,
+                   bf16_mean_abs_err=h_mean, bf16_max_abs_err=h_max,
+                   max_abs_err=max(f_max, h_max), ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                   flops=flops, bytes=nbytes)
+        emit(rec)
+        if not (f_max <= 1e-4 and h_mean <= 1e-3):
+            raise AssertionError(f"{kind} {site}: f32 max |d| {f_max} "
+                                 f"(<= 1e-4), bf16 mean |d| {h_mean} "
+                                 "(<= 1e-3)")
+        results[kind].append(rec)
+        del srcs, base, dense
+        torch.cuda.empty_cache()
+    return results
+
+
 def smooth_frames(torch, n: int, H: int, W: int, seed: int):
     """n uint8 frame pairs: smooth random images, the second moved by a
     few pixels, made on the CPU from a seed."""
@@ -267,11 +435,16 @@ def smooth_frames(torch, n: int, H: int, W: int, seed: int):
 
 def phase_main_path(torch):
     from atmvfi_tpu_torch.infer import InterpolationPipeline
-    from atmvfi_tpu_torch.ops import attention_cuda, warp_cuda
+    from atmvfi_tpu_torch.ops import (attention_cuda, conv_cuda,
+                                      deconv_cuda, warp_cuda)
 
     counters = {"atm_block": attention_cuda.atm_block,
                 "flow_warp_pair": warp_cuda.flow_warp_pair,
-                "flow_warp": warp_cuda.flow_warp}
+                "flow_warp": warp_cuda.flow_warp,
+                "conv3x3": conv_cuda.conv3x3,
+                "conv3x3_s2": conv_cuda.conv3x3_s2,
+                "conv3x3_multi": conv_cuda.conv3x3_multi,
+                "deconv2x": deconv_cuda.deconv2x}
     pipe = InterpolationPipeline(None, "base", torch.bfloat16,
                                  global_motion=True, device="cuda")
     frames = smooth_frames(torch, 4, 1080, 1920, seed=3)
@@ -342,6 +515,18 @@ def kernel_line(results, launches):
         "flow_warp": ("K2 backward warp, single form",
                       "atmvfi_tpu_torch/csrc/warp.cu",
                       "atmvfi_tpu/ops/warp_pallas.py:291"),
+        "conv3x3": ("K3 conv3x3 + bias + PReLU",
+                    "atmvfi_tpu_torch/csrc/conv3x3.cu",
+                    "atmvfi_tpu/ops/conv_pallas.py:148"),
+        "conv3x3_s2": ("K4 stride-2 conv3x3 + bias + PReLU",
+                       "atmvfi_tpu_torch/csrc/conv3x3.cu",
+                       "atmvfi_tpu/ops/conv_pallas.py:792"),
+        "conv3x3_multi": ("K5 multi-source conv3x3 + bias + PReLU",
+                          "atmvfi_tpu_torch/csrc/conv3x3.cu",
+                          "atmvfi_tpu/ops/conv_pallas.py:363"),
+        "deconv2x": ("K6 deconv2x + bias + PReLU",
+                     "atmvfi_tpu_torch/csrc/deconv2x.cu",
+                     "atmvfi_tpu/ops/deconv_pallas.py:102"),
     }
     out = []
     for k, recs in results.items():
@@ -392,6 +577,7 @@ def main() -> int:
                      if "registers" in ln or "spill" in ln
                      or "Compiling entry" in ln][:80]))
     results = phase_kernels(torch)
+    results.update(phase_conv_kernels(torch))
     launches = phase_main_path(torch)
     phase_agreement(torch)
     emit(kernel_line(results, launches))
