@@ -1,7 +1,7 @@
 """2x / 4x / 8x frame interpolation with the PyTorch/CUDA port.
 
     python -m atmvfi_tpu_torch.cli.demo_2x --frame0 a.png --frame1 b.png \
-        --out mid.png [--model_type lite] [--ckpt model.pt] [--fp32]
+        --out mid.png [--model_type lite] [--ckpt model.pt] [--fp32] [--fast]
     python -m atmvfi_tpu_torch.cli.demo_2x --frames_dir frames/ \
         --factor 4 --out out_dir/
 
@@ -10,7 +10,9 @@ sorted frames of a directory and writes the Nx sequence. Frames are
 .npy (uint8 [H, W, 3]) or, when Pillow is installed, any image format
 it reads. Without --ckpt the model runs on seeded random weights (a
 smoke run, not a result). --device cpu runs the plain PyTorch versions
-of the kernels on the CPU.
+of the kernels on the CPU. --fast is the serving profile: the
+full-resolution global pre-alignment is folded into the final flows (a
+small documented deviation from the default forward).
 """
 from __future__ import annotations
 
@@ -59,6 +61,8 @@ def main(argv=None) -> int:
     p.add_argument("--factor", type=int, default=2, choices=[2, 4, 8])
     p.add_argument("--fp32", action="store_true",
                    help="f32 towers (parity mode); default bf16")
+    p.add_argument("--fast", action="store_true",
+                   help="serving profile: composed full-res warps")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
 
@@ -68,7 +72,8 @@ def main(argv=None) -> int:
 
     dtype = torch.float32 if args.fp32 else torch.bfloat16
     kw = dict(variant=args.model_type, dtype=dtype,
-              global_motion=not args.global_off, device=args.device)
+              global_motion=not args.global_off, device=args.device,
+              fast=args.fast)
     if args.ckpt:
         pipe = load_pipeline(args.ckpt, **kw)
     else:

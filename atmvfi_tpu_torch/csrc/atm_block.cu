@@ -1,7 +1,24 @@
-// Kernel K1: fused ATM transformer-block core, for sm_90a.
+// Kernels K1, K7 and K8: the ATM transformer block and its window
+// attention, for sm_90a.
 //
-// Replaces the TPU kernel `atmvfi_tpu/ops/attention_pallas.py::
-// fused_atm_block` (`_block_kernel`). On packed windows x [BW, N, C]:
+// K7 / K8 (`window_attention_*`) replace `atmvfi_tpu/ops/
+// attention_pallas.py::fused_window_attention_packed` (`_packed_kernel`)
+// and `fused_window_attention` (`_kernel`): attention + motion moment
+// from precomputed q [BW, N, C] and kv [BW, N, 2C] (packed), or q, k, v
+// [BW, h, N, d] (head-major). One kernel serves both and K1's launch 2:
+// it reads q, k, v and writes out and motion through (window, head,
+// token) strides, so the q / kv column blocks of a qkv projection go in
+// without a copy, and it reads the mask as mask[w % M] (no tiled copy
+// over the batch). Bound: bytes at the base 1080p shapes (local, bf16:
+// 6.4 GFLOP of products against 0.2 GB of q, kv and out, far below the
+// card's operations per byte). The probabilities stay on chip and each
+// q, k, v element is read once per (window, head), but the products run
+// as scalar f32 FMAs on the CUDA cores, which bound the launch; left for
+// later: the products on the tensor cores (the head dims 48, 84, 28 and
+// 44 need padding to 16).
+//
+// K1 replaces `fused_atm_block` (`_block_kernel`). On packed windows
+// x [BW, N, C]:
 //   xn = LayerNorm(x) (f32 statistics, eps 1e-5), rounded to T
 //   q  = xn @ Wq,  kv = xs @ Wkv, rounded to T, where xs is xn of the
 //        partner window (i + BW/2) mod BW when `swap` (the other
@@ -296,38 +313,60 @@ __global__ void __launch_bounds__(256) gemm_bf16_kernel(GemmArgs g) {
 }
 
 // ---- attention + motion moment, one block per (window, head) -------
+// Shared by K1 (launch 2 of the block) and the window-attention entry
+// points K7 / K8, which read q, k and v at any strides.
 constexpr int ATT_WARPS = 4;
 constexpr int MAX_KEYS = 5;  // N <= 160 keys: 5 per lane
 constexpr int MAX_DIMS = 4;  // head_dim <= 128: 4 per lane
 
+// One operand: element (window w, head, token n, channel d) at
+// ptr[w * sw + head * sh + n * sn + d].
+struct View {
+  void* ptr;
+  long long sw, sh, sn;
+};
+
+struct AttnArgs {
+  View q, k, v, out;
+  View motion;        // (mx, my) at d = 0, 1; ptr null: no motion
+  const float* rel;   // [2, N, N]; null: no motion
+  const float* mask;  // [mask_windows, N, N], window w reads w % M; or null
+  int mask_windows, BW, N, hd, swap;  // swap: k, v of window (w + BW/2) % BW
+  float scale;
+};
+
+template <typename T>
+__device__ __forceinline__ T* at(const View& v, int w, int head, int n) {
+  return static_cast<T*>(v.ptr) + (int64_t)w * v.sw + (int64_t)head * v.sh +
+         (int64_t)n * v.sn;
+}
+
 template <typename T>
 __global__ void __launch_bounds__(ATT_WARPS * 32)
-attn_kernel(const T* __restrict__ qkv, const float* __restrict__ rel,
-            const float* __restrict__ mask, int mask_windows,
-            T* __restrict__ app, T* __restrict__ motion, int BW, int N,
-            int C, int heads, int swap, float scale) {
+attn_kernel(const __grid_constant__ AttnArgs a) {
   extern __shared__ float sm[];
   const int head = blockIdx.x, w = blockIdx.y;
-  const int hd = C / heads;
+  const int N = a.N, hd = a.hd;
   const int hdp = hd | 1;  // odd row stride: conflict-free column reads
   float* Ks = sm;
   float* Vs = Ks + N * hdp;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   float* Qw = Vs + N * hdp + warp * (hdp + N);  // this warp's q row
   float* Pw = Qw + hdp;                         // and probabilities
-  const int kw = swap ? (w + BW / 2) % BW : w;  // kv source window
-  const int C3 = 3 * C;
-  const T* kbase = qkv + (int64_t)kw * N * C3 + C + head * hd;
+  const int kw = a.swap ? (w + a.BW / 2) % a.BW : w;  // kv source window
+  const T* kbase = at<T>(a.k, kw, head, 0);
+  const T* vbase = at<T>(a.v, kw, head, 0);
   for (int e = threadIdx.x; e < N * hd; e += blockDim.x) {
     const int n = e / hd, d = e - n * hd;
-    Ks[n * hdp + d] = to_f(kbase[(int64_t)n * C3 + d]);
-    Vs[n * hdp + d] = to_f(kbase[(int64_t)n * C3 + C + d]);
+    Ks[n * hdp + d] = to_f(kbase[(int64_t)n * a.k.sn + d]);
+    Vs[n * hdp + d] = to_f(vbase[(int64_t)n * a.v.sn + d]);
   }
   __syncthreads();
+  const float* rel = a.rel;
   const float* mwin =
-      mask ? mask + (int64_t)(w % mask_windows) * N * N : nullptr;
+      a.mask ? a.mask + (int64_t)(w % a.mask_windows) * N * N : nullptr;
   for (int q = warp; q < N; q += ATT_WARPS) {
-    const T* qrow = qkv + ((int64_t)w * N + q) * C3 + head * hd;
+    const T* qrow = at<T>(a.q, w, head, q);
     for (int d = lane; d < hd; d += 32) Qw[d] = to_f(qrow[d]);
     __syncwarp();
     float s[MAX_KEYS];
@@ -338,12 +377,12 @@ attn_kernel(const T* __restrict__ qkv, const float* __restrict__ rel,
       s[j] = -INFINITY;
       if (k < N) {
         const float* kr = Ks + k * hdp;
-        float a = 0.f;
-        for (int d = 0; d < hd; ++d) a = fmaf(Qw[d], kr[d], a);
-        a *= scale;
-        if (mwin) a += mwin[q * N + k];
-        s[j] = a;
-        mx = fmaxf(mx, a);
+        float acc = 0.f;
+        for (int d = 0; d < hd; ++d) acc = fmaf(Qw[d], kr[d], acc);
+        acc *= a.scale;
+        if (mwin) acc += mwin[q * N + k];
+        s[j] = acc;
+        mx = fmaxf(mx, acc);
       }
     }
     mx = warp_max(mx);
@@ -372,7 +411,7 @@ attn_kernel(const T* __restrict__ qkv, const float* __restrict__ rel,
       mxs = warp_sum(mxs);
       mys = warp_sum(mys);
       if (lane == 0) {
-        T* mo = motion + ((int64_t)w * N + q) * (2 * heads) + 2 * head;
+        T* mo = at<T>(a.motion, w, head, q);
         mo[0] = from_f<T>(mxs);
         mo[1] = from_f<T>(mys);
       }
@@ -388,7 +427,7 @@ attn_kernel(const T* __restrict__ qkv, const float* __restrict__ rel,
         if (d < hd) o[t] = fmaf(p, vr[d], o[t]);
       }
     }
-    T* orow = app + ((int64_t)w * N + q) * C + head * hd;
+    T* orow = at<T>(a.out, w, head, q);
 #pragma unroll
     for (int t = 0; t < MAX_DIMS; ++t) {
       const int d = lane + 32 * t;
@@ -396,6 +435,26 @@ attn_kernel(const T* __restrict__ qkv, const float* __restrict__ rel,
     }
     __syncwarp();  // Qw / Pw are rewritten by the next query row
   }
+}
+
+template <typename T>
+cudaError_t launch_attn(const AttnArgs& a, int heads, cudaStream_t st) {
+  if (a.BW < 1 || a.N < 1 || a.N > 32 * MAX_KEYS || heads < 1 || a.hd < 1 ||
+      a.hd > 32 * MAX_DIMS || (a.swap && a.BW % 2) ||
+      (a.mask && (a.mask_windows < 1 || a.BW % a.mask_windows)) ||
+      (a.rel && !a.motion.ptr))
+    return cudaErrorInvalidValue;
+  const int hdp = a.hd | 1;
+  const size_t smem = sizeof(float) * (2 * (size_t)a.N * hdp +
+                                       ATT_WARPS * (size_t)(hdp + a.N));
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  attn_kernel<T><<<dim3(heads, a.BW), ATT_WARPS * 32, smem, st>>>(a);
+  return cudaGetLastError();
 }
 
 template <typename T, int MODE>
@@ -428,24 +487,59 @@ int atm_block(const void* x, const void* wqkv, const void* wproj,
   cudaError_t err = launch_gemm<T, 0>(g1, st);
   if (err != cudaSuccess) return (int)err;
 
-  const int hd = C / heads, hdp = hd | 1;
-  const size_t smem =
-      sizeof(float) * (2 * (size_t)N * hdp + ATT_WARPS * (size_t)(hdp + N));
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(attn_kernel<T>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  attn_kernel<T><<<dim3(heads, BW), ATT_WARPS * 32, smem, st>>>(
-      static_cast<const T*>(qkv), static_cast<const float*>(rel),
-      static_cast<const float*>(mask), mask_windows, static_cast<T*>(app),
-      static_cast<T*>(motion), BW, N, C, heads, swap, scale);
-  err = cudaGetLastError();
+  // q, k, v are the three C-wide column blocks of qkv [BW, N, 3C]
+  const long long sw = (long long)N * 3 * C;
+  const int hd = C / heads;
+  AttnArgs a{};
+  a.q = View{qkv, sw, hd, 3 * C};
+  a.k = View{static_cast<T*>(qkv) + C, sw, hd, 3 * C};
+  a.v = View{static_cast<T*>(qkv) + 2 * C, sw, hd, 3 * C};
+  a.out = View{app, (long long)N * C, hd, C};
+  a.motion = View{motion, (long long)N * 2 * heads, 2, 2 * heads};
+  a.rel = static_cast<const float*>(rel);
+  a.mask = static_cast<const float*>(mask);
+  a.mask_windows = mask_windows;
+  a.BW = BW;
+  a.N = N;
+  a.hd = hd;
+  a.swap = swap;
+  a.scale = scale;
+  err = launch_attn<T>(a, heads, st);
   if (err != cudaSuccess) return (int)err;
 
   GemmArgs g3{app, wproj, y, M, C, C, nullptr, nullptr, nullptr, bproj, xn};
   return (int)launch_gemm<T, 1>(g3, st);
+}
+
+// K7 / K8: the attention launch alone on caller-given q, k, v. `strides`
+// holds (sw, sh, sn) for q, k, v, out and motion, in that order.
+template <typename T>
+int window_attention(const void* q, const void* k, const void* v,
+                     const int64_t* strides, void* out, void* motion,
+                     const void* rel, const void* mask, int mask_windows,
+                     int BW, int N, int hd, int heads, float scale,
+                     void* stream) {
+  void* ptrs[5] = {const_cast<void*>(q), const_cast<void*>(k),
+                   const_cast<void*>(v), out, motion};
+  View views[5];
+  for (int i = 0; i < 5; ++i)
+    views[i] = View{ptrs[i], strides[3 * i], strides[3 * i + 1],
+                    strides[3 * i + 2]};
+  AttnArgs a{};
+  a.q = views[0];
+  a.k = views[1];
+  a.v = views[2];
+  a.out = views[3];
+  a.motion = views[4];
+  a.rel = static_cast<const float*>(rel);
+  a.mask = static_cast<const float*>(mask);
+  a.mask_windows = mask_windows;
+  a.BW = BW;
+  a.N = N;
+  a.hd = hd;
+  a.swap = 0;
+  a.scale = scale;
+  return (int)launch_attn<T>(a, heads, static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace
@@ -474,3 +568,17 @@ extern "C" int atm_block_bf16(const void* x, const void* wqkv,
                          mask_windows, xn, qkv, app, y, motion, BW, N, C,
                          heads, swap, scale, stream);
 }
+
+#define WINDOW_ATTENTION_ENTRY(NAME, T)                                      \
+  extern "C" int NAME(const void* q, const void* k, const void* v,          \
+                      const int64_t* strides, void* out, void* motion,      \
+                      const void* rel, const void* mask, int mask_windows,  \
+                      int BW, int N, int hd, int heads, float scale,        \
+                      void* stream) {                                       \
+    return window_attention<T>(q, k, v, strides, out, motion, rel, mask,    \
+                               mask_windows, BW, N, hd, heads, scale,       \
+                               stream);                                     \
+  }
+
+WINDOW_ATTENTION_ENTRY(window_attention_f32, float)
+WINDOW_ATTENTION_ENTRY(window_attention_bf16, bf16)

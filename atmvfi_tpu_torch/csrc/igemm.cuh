@@ -1,5 +1,6 @@
-// Implicit-GEMM core shared by the conv kernels K3-K5 (conv3x3.cu) and
-// the deconv kernel K6 (deconv2x.cu), for sm_90a.
+// Implicit-GEMM core shared by the conv kernels K3-K5 (conv3x3.cu), the
+// deconv kernel K6 (deconv2x.cu) and the fused conv pair K12
+// (conv_pair.cu), for sm_90a.
 //
 // One GEMM row per output pixel (conv) or input pixel (deconv), one
 // GEMM column per output channel (conv) or per (parity, channel) pair

@@ -1,4 +1,4 @@
-// Kernel K2: bilinear backward warp, NHWC, for sm_90a.
+// Kernels K2 and K9: bilinear backward warp, NHWC, for sm_90a.
 //
 // Replaces the TPU tile-slab warp `atmvfi_tpu/ops/warp_pallas.py::
 // flow_warp_tiled` (v3 kernel `_kernel_v3`, and the pair form
@@ -23,8 +23,18 @@
 // features are accumulated in f32 and rounded once.
 //
 // The pair form warps two images by two flows in one launch
-// (blockIdx.y selects the image). Later work: vector loads, a fused
-// dual warp + occlusion blend (the TPU's K9).
+// (blockIdx.y selects the image). Later work: vector loads.
+//
+// Kernel K9 (`warp_blend_f32`) replaces the TPU's fused dual warp +
+// occlusion blend `flow_warp_blend_tiled` (`_kernel_blend`):
+// I_t = occ * warp(img0, flow0) + (1 - occ) * warp(img1, flow1) on f32
+// NHWC images, one thread per pixel. The two warped frames never reach
+// device memory: it reads each image's taps, both flows and occ, and
+// writes I_t once: 56 of the 104 bytes per pixel (C = 3) that the pair
+// warp plus the separate blend move. Bound: bytes. The blend uses the plain
+// version's rounded operations in its order (occ*w0, 1-occ, (1-occ)*w1,
+// the sum; no FMA contraction), so I_t is bit-equal to the K2 pair
+// followed by the eager blend.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -139,6 +149,31 @@ __global__ void warp_wide_kernel(WarpArgs a, int B, int H, int W, int C,
   }
 }
 
+__global__ void warp_blend_kernel(const float* __restrict__ img0,
+                                  const float* __restrict__ img1,
+                                  const float* __restrict__ flow0,
+                                  const float* __restrict__ flow1,
+                                  const float* __restrict__ occ,
+                                  float* __restrict__ out, int B, int H,
+                                  int W, int C, int64_t ps) {
+  const int64_t n = (int64_t)B * H * W;
+  for (int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; p < n;
+       p += (int64_t)gridDim.x * blockDim.x) {
+    const Taps t0 = make_taps(flow0, p, H, W);
+    const Taps t1 = make_taps(flow1, p, H, W);
+    const float o = occ[p];
+    const float r = __fsub_rn(1.0f, o);
+    for (int c = 0; c < C; ++c)
+      out[p * C + c] = __fadd_rn(__fmul_rn(o, tap_sum(img0, t0, ps, c)),
+                                 __fmul_rn(r, tap_sum(img1, t1, ps, c)));
+  }
+}
+
+int64_t grid_blocks(int64_t work, int threads) {
+  const int64_t blocks = (work + threads - 1) / threads;
+  return blocks < 65535LL * 16 ? blocks : 65535LL * 16;  // grid-stride loop
+}
+
 template <typename T>
 int launch(const void* img0, const void* img1, const void* flow0,
            const void* flow1, void* out0, void* out1, int n_img, int B,
@@ -154,9 +189,7 @@ int launch(const void* img0, const void* img1, const void* flow0,
   a.out[1] = out1;
   const int threads = 256;
   const int64_t work = (int64_t)B * H * W * (C <= 4 ? 1 : C);
-  int64_t blocks = (work + threads - 1) / threads;
-  if (blocks > 65535LL * 16) blocks = 65535LL * 16;  // grid-stride loop
-  dim3 grid((unsigned)blocks, (unsigned)n_img);
+  dim3 grid((unsigned)grid_blocks(work, threads), (unsigned)n_img);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (C <= 4)
     warp_narrow_kernel<T><<<grid, threads, 0, st>>>(a, B, H, W, C, ps);
@@ -181,6 +214,22 @@ extern "C" int warp_bf16(const void* img0, const void* img1,
                          int64_t ps, void* stream) {
   return launch<__nv_bfloat16>(img0, img1, flow0, flow1, out0, out1, n_img,
                                B, H, W, C, ps, stream);
+}
+
+extern "C" int warp_blend_f32(const void* img0, const void* img1,
+                              const void* flow0, const void* flow1,
+                              const void* occ, void* out, int B, int H, int W,
+                              int C, int64_t ps, void* stream) {
+  if (B < 1 || H < 1 || W < 1 || C < 1 || ps < C)
+    return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  warp_blend_kernel<<<(unsigned)grid_blocks((int64_t)B * H * W, threads),
+                      threads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(img0), static_cast<const float*>(img1),
+      static_cast<const float*>(flow0), static_cast<const float*>(flow1),
+      static_cast<const float*>(occ), static_cast<float*>(out), B, H, W, C,
+      ps);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* cuda_error_name(int code) {

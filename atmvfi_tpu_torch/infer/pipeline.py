@@ -33,7 +33,10 @@ class InterpolationPipeline:
     state_dict: the port's weights (`convert.load_checkpoint`,
     `convert.params_from_jax`); None keeps the seeded random weights of
     `torch.Generator().manual_seed(0)`. `variant` is "base", "lite" or
-    an `ATMVFIConfig`.
+    an `ATMVFIConfig` (which carries the route fields). `fast=True`
+    applies the serving profile `ATMVFIConfig.fast()`: composed
+    full-resolution warps, a small documented deviation from the
+    default forward.
     """
 
     def __init__(self, state_dict: Optional[dict] = None,
@@ -41,13 +44,15 @@ class InterpolationPipeline:
                  dtype: torch.dtype = torch.bfloat16,
                  global_motion: bool = True,
                  ensemble_global_motion: bool = False,
-                 pad_divisor: int = 64, device="cuda"):
+                 pad_divisor: int = 64, device="cuda", fast: bool = False):
         if ensemble_global_motion:
             raise NotImplementedError(
                 "the multiscale global-motion ensemble is not ported yet")
         self.device = resolve_device(device)
         cfg = (get_config(variant) if isinstance(variant, str) else variant)
         self.cfg = cfg.with_dtype(dtype)
+        if fast:
+            self.cfg = self.cfg.fast()
         net = Network(self.cfg, torch.Generator().manual_seed(0))
         if state_dict is not None:
             net.load_state_dict(state_dict, strict=True)

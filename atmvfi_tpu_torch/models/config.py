@@ -1,9 +1,30 @@
 """Model configuration presets (base / lite).
 
-Counterpart of `atmvfi_tpu/models/config.py` without the TPU route
-fields: on the card the port always runs its kernels, and on the CPU
-their plain versions. `dtype` is the working type of the conv and
-attention towers; images, flows, occlusion, warps and blends stay f32.
+Counterpart of `atmvfi_tpu/models/config.py`. `dtype` is the working
+type of the conv and attention towers; images, flows, occlusion, warps
+and blends stay f32. On the card the port always runs its kernels, on
+the CPU their plain versions.
+
+The JAX route fields select the port's counterparts:
+
+* `attention_impl`: "auto" and "pallas_block" run the fused block
+  kernel K1; "pallas" and "xla" (one function) the packed route: LN,
+  q / kv / qkv projections (cuBLAS), the attention + motion kernel K7,
+  the output projection.
+* `warp_impl`: "tiled_blend" and "tiled_blend_unchecked" run the fused
+  dual warp + occlusion blend K9 for I_t at every blend site; every
+  other value ("auto", "xla", the tiled variants) is the same bilinear
+  warp, which K2 computes.
+* `hcw_fuse_pairs`: each decoder conv pair and the refine head run as
+  one fused conv-pair kernel K12.
+* `compose_full_res_warps` (set with `warp_impl="tiled_unchecked"` by
+  `fast()`, the serving profile): skip the full-resolution pre-align
+  warp and add the upsampled global flow to the scale-0 flows instead.
+
+The JAX package's TPU gates (the window-count gate, tile multiples,
+`W >= 384`, `pair_run_fits`) choose TPU layouts, not results: each
+kernel here computes the same function at every shape, so the selected
+route runs at every site.
 """
 from __future__ import annotations
 
@@ -11,6 +32,12 @@ import dataclasses
 from typing import Tuple
 
 import torch
+
+ATTENTION_IMPLS = ("auto", "pallas_block", "pallas", "xla")
+WARP_IMPLS = ("auto", "xla", "tiled", "tiled_chw", "tiled_unchecked",
+              "tiled_v2", "tiled_v2_unchecked", "tiled_v3",
+              "tiled_v3_unchecked", "tiled_nhwc", "tiled_blend",
+              "tiled_blend_unchecked")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -28,6 +55,35 @@ class ATMVFIConfig:
     last_feat_extra: int = 96  # last_feat_dim = hidden_dims[-1] + extra
     refine_hidden: int = 64
     dtype: torch.dtype = torch.float32
+    attention_impl: str = "auto"
+    warp_impl: str = "auto"
+    compose_full_res_warps: bool = False
+    hcw_fuse_pairs: bool = False
+
+    def __post_init__(self):
+        if self.attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(f"attention_impl {self.attention_impl!r} is not "
+                             f"one of {ATTENTION_IMPLS}")
+        if self.warp_impl not in WARP_IMPLS:
+            raise ValueError(f"warp_impl {self.warp_impl!r} is not one of "
+                             f"{WARP_IMPLS}")
+
+    def fast(self) -> "ATMVFIConfig":
+        """Serving profile: the unchecked warp route and composed
+        full-resolution warps (one resampling of the full-size frames
+        instead of two; an approximation of the default forward)."""
+        return dataclasses.replace(self, warp_impl="tiled_unchecked",
+                                   compose_full_res_warps=True)
+
+    @property
+    def packed_attention(self) -> bool:
+        """Attention route: packed (K7) or the fused block (K1)."""
+        return self.attention_impl in ("pallas", "xla")
+
+    @property
+    def fused_blend(self) -> bool:
+        """Blend route: I_t from the fused warp + blend kernel (K9)."""
+        return self.warp_impl.startswith("tiled_blend")
 
     @property
     def fused_dim(self) -> int:

@@ -15,9 +15,13 @@ dilated fusion convs, 1x1 heads, depthwise MLP convs), which the JAX
 package leaves to XLA, stay `Conv2d`: cuDNN on an NCHW view of the NHWC
 tensor (`permute(0, 3, 1, 2)`, channels_last in memory, no copy).
 
-The two transformer blocks run kernel K1 (`ops.attention_cuda.
-atm_block`) the way the JAX "block" mode does: ATMFormer with the frame
-swap and the motion moment, RefineBottleneck as self-attention.
+The two transformer blocks run the JAX package's "block" mode through
+kernel K1 (`ops.attention_cuda.atm_block`: ATMFormer with the frame
+swap and the motion moment, RefineBottleneck as self-attention), or with
+`packed=True` its "packed" mode: norm1 rounded to the working type, the
+q / kv (or qkv) projections, the attention + motion kernel K7
+(`ops.attention_cuda.window_attention`) on the projections' column
+blocks, the output projection, and the residual onto norm1(x).
 """
 from __future__ import annotations
 
@@ -31,7 +35,7 @@ import torch.nn.functional as F
 
 from atmvfi_tpu_torch import ops
 from atmvfi_tpu_torch.ops.attention import layer_norm_f32
-from atmvfi_tpu_torch.ops.attention_cuda import atm_block
+from atmvfi_tpu_torch.ops.attention_cuda import atm_block, window_attention
 from atmvfi_tpu_torch.ops.conv_cuda import conv3x3, conv3x3_multi, conv3x3_s2
 from atmvfi_tpu_torch.ops.deconv_cuda import deconv2x
 
@@ -261,9 +265,11 @@ class AttentionToMotion(nn.Module):
     """Cross-frame window attention emitting appearance + motion.
 
     Holds q / kv / proj and the per-direction motion MLP (`mlp.0`,
-    `mlp.2`: Linear(h, h/2) -> GELU -> Linear(h/2, 1)). `forward` takes
-    the unnormalised windows and the parent's norm1, and returns
-    norm1(x) + proj(attn) and the motion seed [BW, N, 2].
+    `mlp.2`: Linear(h, h/2) -> GELU -> Linear(h/2, 1)). `forward` (K1)
+    takes the unnormalised windows and the parent's norm1, and returns
+    norm1(x) + proj(attn) and the motion seed [BW, N, 2];
+    `forward_packed` (K7) takes norm1(x) and the partner windows' copy
+    and returns proj(attn) and the motion seed.
     """
 
     def __init__(self, dim: int, window_size: int, num_heads: int = 8,
@@ -278,16 +284,30 @@ class AttentionToMotion(nn.Module):
                                  Linear(num_heads // 2, 1, dtype=dtype))
 
     def forward(self, x_win, mask, norm1: LayerNorm):
-        BW, N, C = x_win.shape
+        C = x_win.shape[-1]
         h = self.num_heads
         rel = _device_rel(self.window_size, x_win.device)
         y, motion = atm_block(
             x_win.to(self.dtype).contiguous(), self.q.weight, self.kv.weight,
             self.proj.weight, self.proj.bias, norm1.weight, norm1.bias,
             (C // h) ** -0.5, rel, mask, h, True)
-        motion = motion.to(self.dtype).reshape(BW, N, h, 2).permute(0, 3, 1, 2)
-        m = self.mlp(motion)  # [BW, 2, N, 1]
-        return y, m[..., 0].transpose(1, 2)  # [BW, N, 2] (dx, dy)
+        return y, self._motion(motion)
+
+    def forward_packed(self, x_norm, x_rev, mask):
+        """Packed route on normalised windows: (proj(attn), motion)."""
+        C = x_norm.shape[-1]
+        h = self.num_heads
+        out, motion = window_attention(
+            self.q(x_norm), self.kv(x_rev), (C // h) ** -0.5,
+            _device_rel(self.window_size, x_norm.device), mask, h)
+        return self.proj(out), self._motion(motion)
+
+    def _motion(self, motion):
+        """Per-head motion [BW, N, 2h] -> motion MLP -> [BW, N, 2]."""
+        BW, N, _ = motion.shape
+        motion = motion.to(self.dtype).reshape(BW, N, self.num_heads, 2)
+        m = self.mlp(motion.permute(0, 3, 1, 2))  # [BW, 2, N, 1]
+        return m[..., 0].transpose(1, 2)  # [BW, N, 2] (dx, dy)
 
 
 class WindowAttention(nn.Module):
@@ -309,14 +329,24 @@ class WindowAttention(nn.Module):
             (C // self.num_heads) ** -0.5, None, mask, self.num_heads, False)
         return y
 
+    def forward_packed(self, x_norm, mask):
+        """Packed route on normalised windows: proj(attn)."""
+        C = x_norm.shape[-1]
+        qkv = self.qkv(x_norm)
+        out, _ = window_attention(qkv[..., :C], qkv[..., C:],
+                                  (C // self.num_heads) ** -0.5, None, mask,
+                                  self.num_heads)
+        return self.proj(out)
+
 
 class _SwinShell(nn.Module):
     """Center pad, cyclic shift and window partition around a block."""
 
     def __init__(self, dim: int, window_size: int, shift_size: int,
-                 mlp_ratio: float, dtype: torch.dtype):
+                 mlp_ratio: float, dtype: torch.dtype, packed: bool):
         super().__init__()
         self.window_size, self.shift_size = window_size, shift_size
+        self.packed = packed
         self.norm1 = LayerNorm(dim, dtype)
         self.norm2 = LayerNorm(dim, dtype)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
@@ -342,18 +372,27 @@ class _SwinShell(nn.Module):
 
 class ATMFormer(_SwinShell):
     """Swin-style block around AttentionToMotion. [2B, H, W, C] with the
-    two frames stacked on the batch axis -> (tokens, motion [2B, H, W, 2])."""
+    two frames stacked on the batch axis -> (tokens, motion [2B, H, W, 2]).
+    The partner of window i is window (i + BW/2) mod BW: the same window
+    of the other frame."""
 
     def __init__(self, dim: int, window_size: int = 8, shift_size: int = 0,
                  num_heads: int = 8, mlp_ratio: float = 4.0,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(dim, window_size, shift_size, mlp_ratio, dtype)
+                 dtype: torch.dtype = torch.float32, packed: bool = False):
+        super().__init__(dim, window_size, shift_size, mlp_ratio, dtype,
+                         packed)
         self.attn = AttentionToMotion(dim, window_size, num_heads, dtype)
 
     def forward(self, x):
         _, H, W, _ = x.shape
         x_win, mask, (Hp, Wp) = self._prologue(x)
-        y, motion = self.attn(x_win, mask, self.norm1)
+        if self.packed:
+            x_norm = self.norm1(x_win)
+            x_rev = torch.roll(x_norm, -(x_norm.shape[0] // 2), 0)
+            app, motion = self.attn.forward_packed(x_norm, x_rev, mask)
+            y = x_norm + app
+        else:
+            y, motion = self.attn(x_win, mask, self.norm1)
         x_out = self._epilogue(y, Hp, Wp, H, W)
         motion_out = self._epilogue(motion, Hp, Wp, H, W)
         return self._mlp_residual(x_out), motion_out
@@ -364,14 +403,19 @@ class RefineBottleneck(_SwinShell):
 
     def __init__(self, dim: int, window_size: int = 8, shift_size: int = 0,
                  num_heads: int = 8, mlp_ratio: float = 4.0,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(dim, window_size, shift_size, mlp_ratio, dtype)
+                 dtype: torch.dtype = torch.float32, packed: bool = False):
+        super().__init__(dim, window_size, shift_size, mlp_ratio, dtype,
+                         packed)
         self.attn = WindowAttention(dim, num_heads, dtype)
 
     def forward(self, x):
         _, H, W, _ = x.shape
         x_win, mask, (Hp, Wp) = self._prologue(x)
-        y = self.attn(x_win, mask, self.norm1)
+        if self.packed:
+            x_norm = self.norm1(x_win)
+            y = x_norm + self.attn.forward_packed(x_norm, mask)
+        else:
+            y = self.attn(x_win, mask, self.norm1)
         return self._mlp_residual(self._epilogue(y, Hp, Wp, H, W))
 
 

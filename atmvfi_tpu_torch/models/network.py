@@ -1,18 +1,22 @@
 """ATM-VFI network, two-frame forward (base and lite presets).
 
-Counterpart of `atmvfi_tpu/models/network.py::Network.__call__` on its
-default `conv_impl="auto"` path (with `tail_planar="off"`): every layer
-that the JAX package runs through a conv kernel runs the port's kernel
--- each ConvPReLU as K3 (stride 1) or K4 (stride 2), the decoder's
-plain 3x3 convs as K3, every Deconv2x as K6, and the two convs that
-read the f32 images as K5 (the encoder's first conv on the stacked
-frames, the refinement proj on [decoder feature || five images]) --
-with bias and PReLU fused. The layers that the JAX package leaves to
-XLA stay cuDNN (`F.conv2d`): the strided and dilated fusion convs and
-their 1x1 projection, the 1x1 motion-head outputs and the depthwise MLP
-convs. The six transformer blocks run kernel K1 and every backward warp
-runs kernel K2 (`ops.warp_cuda`). On the CPU each kernel wrapper runs
-its plain PyTorch version.
+Counterpart of `atmvfi_tpu/models/network.py::Network.__call__` with its
+route fields (`models.config`). Every layer that the JAX package runs
+through a conv kernel runs the port's kernel -- each ConvPReLU as K3
+(stride 1) or K4 (stride 2), the decoder's plain 3x3 convs as K3, every
+Deconv2x as K6, and the two convs that read the f32 images as K5 (the
+encoder's first conv on the stacked frames, as the JAX planes route
+does, and the refinement proj on [decoder feature || five images]) --
+with bias and PReLU fused. With `hcw_fuse_pairs` each decoder conv pair
+and the refine head run as one K12 call instead of two K3 calls. The
+layers that the JAX package leaves to XLA stay cuDNN (`F.conv2d`): the
+strided and dilated fusion convs and their 1x1 projection, the 1x1
+motion-head outputs and the depthwise MLP convs. The six transformer
+blocks run kernel K1, or K7 between cuBLAS projections on the packed
+attention route; every backward warp runs kernel K2 (`ops.warp_cuda`),
+and on the `tiled_blend` route I_t of each blend site comes from K9 (the
+warped pair from one K2 pair launch beside it). On the CPU each kernel
+wrapper runs its plain PyTorch version.
 
 Frames are stacked on the batch axis so the shared towers run once on
 [2B, ...]. Mixed precision as in the JAX package: images, flows,
@@ -39,7 +43,12 @@ from atmvfi_tpu_torch.models.layers import (
     RefineBottleneck,
     reset_parameters,
 )
-from atmvfi_tpu_torch.ops.warp_cuda import flow_warp, flow_warp_pair
+from atmvfi_tpu_torch.ops.conv_cuda import conv3x3_pair
+from atmvfi_tpu_torch.ops.warp_cuda import (
+    flow_warp,
+    flow_warp_blend,
+    flow_warp_pair,
+)
 
 # named ranges of the forward in torch.profiler traces (stage breakdown
 # of `atmvfi_tpu_torch.tools.profile_main_path`); a no-op otherwise
@@ -80,11 +89,12 @@ class Network(nn.Module):
             tuple(d[1:]), fused, dt)
         self.feat_enhance_transformer = nn.ModuleList([
             RefineBottleneck(fused, c.enhance_window, s, c.num_heads,
-                             c.mlp_ratio, dt)
+                             c.mlp_ratio, dt, c.packed_attention)
             for s in (0, c.enhance_window // 2)
         ])
         self.local_motion_atmformer = nn.ModuleList([
-            ATMFormer(fused, c.local_window, s, c.num_heads, c.mlp_ratio, dt)
+            ATMFormer(fused, c.local_window, s, c.num_heads, c.mlp_ratio, dt,
+                      c.packed_attention)
             for s in (0, c.local_window // 2)
         ])
         n_motion = 4 * 2  # 2 blocks x (dx, dy) x 2 frames
@@ -102,7 +112,8 @@ class Network(nn.Module):
         self.global_feature_fusion = CrossScaleFeatureFusion(
             (d[-2], d[-1], lfd), gdim, dt)
         self.global_motion_atmformer = nn.ModuleList([
-            ATMFormer(gdim, c.global_window, s, c.num_heads, c.mlp_ratio, dt)
+            ATMFormer(gdim, c.global_window, s, c.num_heads, c.mlp_ratio, dt,
+                      c.packed_attention)
             for s in (0, c.global_window // 2)
         ])
         self.global_motion_mlp = nn.Sequential(
@@ -145,11 +156,25 @@ class Network(nn.Module):
         reset_parameters(self, generator)
 
     # ------------------------------------------------------------------
-    @staticmethod
-    def _warp_blend(im0, im1, flow0, flow1, occ):
-        """(I_t, I_t_0, I_t_1): one pair warp, then the occlusion blend."""
+    def _warp_blend(self, im0, im1, flow0, flow1, occ):
+        """(I_t, I_t_0, I_t_1): one pair warp, then the occlusion blend;
+        on the fused route I_t comes from K9 beside the pair warp."""
         w0, w1 = flow_warp_pair(im0, im1, flow0, flow1)
+        if self.cfg.fused_blend:
+            return flow_warp_blend(im0, im1, flow0, flow1, occ), w0, w1
         return occ * w0 + (1 - occ) * w1, w0, w1
+
+    def _conv_pair(self, conv_a: ConvPReLU, conv_b, x):
+        """Two stride-1 3x3 convs (ConvPReLU, then ConvPReLU or
+        PlainConv3x3): one K12 call under `hcw_fuse_pairs`, else two K3."""
+        if not self.cfg.hcw_fuse_pairs:
+            return conv_b(conv_a(x))
+        if isinstance(conv_b, ConvPReLU):
+            wb, bb, sb = conv_b[0].weight, conv_b[0].bias, conv_b[1].weight
+        else:
+            wb, bb, sb = conv_b.weight, conv_b.bias, None
+        return conv3x3_pair(x.to(conv_a[0].dtype), conv_a[0].weight,
+                            conv_a[0].bias, conv_a[1].weight, wb, bb, sb)
 
     def shared_feat_extraction(self, x):
         """[2B, H, W, 3] f32 frames -> coarsest feature + [1/2, 1/4, 1/8]
@@ -204,7 +229,8 @@ class Network(nn.Module):
         cat2 = torch.cat([self.up1(feat3), feat2], -1)
         cat1 = torch.cat([self.up2(cat2), feat1], -1)
         cat_h = torch.cat([self.up3(cat1), feat0], -1)
-        return 2 * torch.sigmoid(self.refine_head(cat_h)) - 1
+        head = self._conv_pair(*self.refine_head, cat_h)
+        return 2 * torch.sigmoid(head) - 1
 
     # ------------------------------------------------------------------
     def forward(self, im0, im1, global_motion: bool = True,
@@ -221,6 +247,7 @@ class Network(nn.Module):
         im_t_list: List[torch.Tensor] = []
         im0_warped_list: List[torch.Tensor] = []
         im1_warped_list: List[torch.Tensor] = []
+        compose_full = global_motion and c.compose_full_res_warps
         with span("encoder"):
             for _ in range(c.pyramid_level - 1):
                 im0_list.append(ops.downsample_2x(im0_list[-1]))
@@ -246,6 +273,12 @@ class Network(nn.Module):
                 feat = torch.cat([flow_warp(feat[:B], gf0),
                                   flow_warp(feat[B:], gf1)], 0)
                 for i in reversed(range(c.pyramid_level)):
+                    if i == 0 and compose_full:
+                        # serving profile: leave the full-size frames
+                        # unwarped; the global flow is added to the
+                        # scale-0 flows instead (one resampling, not two)
+                        gf_full = gf0, gf1
+                        continue
                     im0_list[i], im1_list[i] = flow_warp_pair(
                         im0_list[i], im1_list[i], gf0, gf1)
                     if i != 0:
@@ -271,10 +304,13 @@ class Network(nn.Module):
             skips = []
             mo = c.motion_out_dim
             for stage, scale in zip(self.upsample_pyramid, (2, 1, 0)):
-                feat = stage(feat)
+                feat = self._conv_pair(*stage[-2:], stage[:-2](feat))
                 flow0, flow1, occ1 = _split_head(feat[..., -mo:])
                 if scale != 0:
                     skips.append(feat[..., :-mo])
+                if scale == 0 and compose_full:
+                    flow0 = flow0 + gf_full[0]
+                    flow1 = flow1 + gf_full[1]
                 I_t, I_t_0, I_t_1 = self._warp_blend(
                     im0_list[scale], im1_list[scale], flow0, flow1, occ1)
                 im0_warped_list.insert(0, I_t_0)

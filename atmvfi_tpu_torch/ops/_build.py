@@ -96,6 +96,19 @@ def _declare(lib) -> None:
         fn.argtypes = [P, P, P, P, P, P, P, P, I, P, P, P, P, P,
                        I, I, I, I, I, F, P]
         fn.restype = I
+        fn = getattr(lib, f"window_attention_{dt}")
+        # q, k, v, (sw, sh, sn) x 5 (q, k, v, out, motion), out, motion,
+        # rel, mask, mask_windows, BW, N, head_dim, heads, scale, stream
+        fn.argtypes = [P, P, P, ctypes.POINTER(ctypes.c_int64), P, P, P, P,
+                       I, I, I, I, I, F, P]
+        fn.restype = I
+        fn = getattr(lib, f"conv3x3_pair_{dt}")
+        # source descriptor (int64 x 5), B, H, W, packed weight a, Kp a,
+        # bias a, slope a, Cmid, packed weight b, Kp b, bias b, slope b,
+        # out, Cout, out pixel stride, stream
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int64), I, I, I, P, I, P, P,
+                       I, P, I, P, P, P, I, ctypes.c_int64, P]
+        fn.restype = I
         fn = getattr(lib, f"warp_{dt}")
         # img0, img1, flow0, flow1, out0, out1, n_img, B, H, W, C,
         # in_pixel_stride, stream
@@ -115,6 +128,11 @@ def _declare(lib) -> None:
         fn.argtypes = [P, ctypes.c_int64, I, I, I, I, I, I, P, I, P, P, P, I,
                        ctypes.c_int64, P]
         fn.restype = I
+    # img0, img1, flow0, flow1, occ, out, B, H, W, C, in_pixel_stride,
+    # stream
+    lib.warp_blend_f32.argtypes = [P, P, P, P, P, P, I, I, I, I,
+                                   ctypes.c_int64, P]
+    lib.warp_blend_f32.restype = I
 
 
 def load_library():

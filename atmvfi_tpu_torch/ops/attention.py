@@ -1,8 +1,21 @@
-"""Fused ATM transformer-block core: the plain PyTorch version.
+"""Window attention + motion moment: the plain PyTorch versions.
 
-Counterpart of `atmvfi_tpu/ops/attention_pallas.py::_block_reference`
-(with `_packed_reference`), and the plain version of kernel K1
-(`ops.attention_cuda`). On packed windows x [BW, N, C]:
+* `window_attention`: packed q [BW, N, C], kv [BW, N, 2C]; counterpart
+  of `atmvfi_tpu/ops/attention_pallas.py::_packed_reference` and the
+  plain version of kernel K7.
+* `window_attention_heads`: head-major q, k, v [BW, h, N, d];
+  counterpart of `reference_window_attention` and the plain version of
+  K8 (K7's kernel at head-major strides).
+* `atm_block_reference`: the fused block core; counterpart of
+  `_block_reference` and the plain version of K1.
+
+Per window and head: p = softmax(q k^T * scale + mask) in f32, out =
+round_T(p) @ v, motion = (sum_k p * rel_x, sum_k p * rel_y) from the f32
+p. `mask` is [M, N, N] with BW % M == 0 (window w uses mask[w % M]) or
+None; `rel` is [2, N, N] or None (no motion).
+
+The block core (`ops.attention_cuda.atm_block`), on packed windows
+x [BW, N, C]:
 
     xn = LayerNorm(x)                     (f32 statistics, eps 1e-5)
     q = xn Wq^T, kv = xs Wkv^T            (xs = xn of the partner window
@@ -13,9 +26,8 @@ Counterpart of `atmvfi_tpu/ops/attention_pallas.py::_block_reference`
     y = xn + app Wproj^T + bproj          (residual onto norm1(x))
 
 Weights are in nn.Linear layout [out, in]; `wkv` stacks k over v.
-`mask` is [M, N, N] with BW % M == 0 (window w uses mask[w % M]) or
-None; `rel` is [2, N, N] or None (no motion). Returns (y [BW, N, C],
-motion [BW, N, 2h] as (mx, my) per head, or None), both in x.dtype.
+Returns (y [BW, N, C], motion [BW, N, 2h] as (mx, my) per head, or
+None), both in x.dtype.
 """
 from __future__ import annotations
 
@@ -33,27 +45,41 @@ def layer_norm_f32(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     return (xf - mu) * torch.rsqrt(var + eps) * g.float() + b.float()
 
 
-def window_attention(q, kv, scale: float, rel: Optional[torch.Tensor],
-                     mask: Optional[torch.Tensor], num_heads: int):
-    """Attention + motion moment on packed q [BW, N, C], kv [BW, N, 2C]."""
-    BW, N, C = q.shape
-    h = num_heads
-    hd = C // h
-    qh = q.reshape(BW, N, h, hd).transpose(1, 2)
-    kh = kv[..., :C].reshape(BW, N, h, hd).transpose(1, 2)
-    vh = kv[..., C:].reshape(BW, N, h, hd).transpose(1, 2)
-    attn = torch.matmul(qh.float(), kh.float().transpose(-1, -2)) * scale
+def window_attention_heads(q, k, v, scale: float,
+                           rel: Optional[torch.Tensor],
+                           mask: Optional[torch.Tensor]):
+    """Attention + motion on head-major q, k, v [BW, h, N, d]; returns
+    (out [BW, h, N, d], motion [BW, h, N, 2] or None) in q.dtype."""
+    BW, h, N, _ = q.shape
+    attn = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if mask is not None:
         M = mask.shape[0]
         attn = (attn.reshape(BW // M, M, h, N, N)
                 + mask.float()[None, :, None]).reshape(BW, h, N, N)
     p = torch.softmax(attn, dim=-1)  # f32
-    out = torch.matmul(p.to(q.dtype), vh)  # [BW, h, N, hd]
-    out = out.transpose(1, 2).reshape(BW, N, C)
+    out = torch.matmul(p.to(q.dtype), v)
     motion = None
     if rel is not None:
-        motion = torch.einsum("bhqk,dqk->bqhd", p, rel.float())
-        motion = motion.reshape(BW, N, 2 * h).to(q.dtype)
+        motion = torch.einsum("bhqk,dqk->bhqd", p, rel.float()).to(q.dtype)
+    return out, motion
+
+
+def window_attention(q, kv, scale: float, rel: Optional[torch.Tensor],
+                     mask: Optional[torch.Tensor], num_heads: int):
+    """Attention + motion moment on packed q [BW, N, C], kv [BW, N, 2C];
+    returns (out [BW, N, C], motion [BW, N, 2h] or None)."""
+    BW, N, C = q.shape
+    h = num_heads
+
+    def heads(t):
+        return t.reshape(BW, N, h, C // h).transpose(1, 2)
+
+    out, motion = window_attention_heads(heads(q), heads(kv[..., :C]),
+                                         heads(kv[..., C:]), scale, rel,
+                                         mask)
+    out = out.transpose(1, 2).reshape(BW, N, C)
+    if motion is not None:
+        motion = motion.transpose(1, 2).reshape(BW, N, 2 * h)
     return out, motion
 
 

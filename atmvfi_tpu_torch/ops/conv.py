@@ -1,4 +1,4 @@
-"""Plain versions of the conv kernels K3-K6 (NHWC).
+"""Plain versions of the conv kernels K3-K6 and K12 (NHWC).
 
 Counterparts of the XLA compositions beside the TPU kernels
 (`atmvfi_tpu/ops/conv_pallas.py::_xla_equiv*`,
@@ -45,6 +45,18 @@ def conv3x3(sources: Sequence[torch.Tensor], weight: torch.Tensor,
     y = F.conv2d(x.permute(0, 3, 1, 2), weight.to(dt).float(), None,
                  stride, 1)
     return _epilogue(y.permute(0, 2, 3, 1), bias, slope, dt)
+
+
+def conv3x3_pair(x: torch.Tensor, wa: torch.Tensor, ba: torch.Tensor,
+                 sa: Optional[torch.Tensor], wb: torch.Tensor,
+                 bb: torch.Tensor, sb: Optional[torch.Tensor] = None,
+                 dtype: Optional[torch.dtype] = None):
+    """K12's function: conv_b(round(PReLU_a(conv_a(x) + ba))) + bb
+    (+ PReLU_b), two stride-1 convs with the intermediate rounded to
+    `dtype` (x's type when None)."""
+    dt = x.dtype if dtype is None else dtype
+    mid = conv3x3([x], wa, ba, sa, 1, dt)
+    return conv3x3([mid], wb, bb, sb, 1, dt)
 
 
 def deconv2x(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,

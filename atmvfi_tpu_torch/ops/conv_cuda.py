@@ -1,4 +1,5 @@
-"""Kernel K3-K5 wrappers: 3x3 conv + bias (+ PReLU) (`csrc/conv3x3.cu`).
+"""Kernel K3-K5 and K12 wrappers: 3x3 conv + bias (+ PReLU)
+(`csrc/conv3x3.cu`, `csrc/conv_pair.cu`).
 
 * `conv3x3` (K3) replaces `atmvfi_tpu/ops/conv_pallas.py::conv3x3_hcw_op`:
   stride 1, 'same' zero padding.
@@ -7,8 +8,11 @@
 * `conv3x3_multi` (K5) replaces `conv3x3_hcw_planes_op` and
   `conv3x3_planes_only_op`: the conv over the channel concat of up to
   six sources, which is never built.
+* `conv3x3_pair` (K12) replaces `conv3x3_pair_hcw_op`: two stride-1
+  convs, conv_b(round(PReLU_a(conv_a(x) + bias_a))) + bias_b
+  (+ PReLU_b), the intermediate kept on chip.
 
-For CPU tensors each runs the plain version `ops.conv.conv3x3`; for
+For CPU tensors each runs its plain version (`ops.conv`); for
 CUDA tensors it launches the kernel or raises. `<fn>.calls` counts the
 calls on any device, `<fn>.launches` the kernel launches (one per call
 on the card).
@@ -35,6 +39,7 @@ import torch
 
 from atmvfi_tpu_torch.ops import _build
 from atmvfi_tpu_torch.ops.conv import conv3x3 as conv3x3_plain
+from atmvfi_tpu_torch.ops.conv import conv3x3_pair as conv3x3_pair_plain
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAX_SOURCES = 6
@@ -99,7 +104,8 @@ def _vec(v: Optional[torch.Tensor], cout: int, what: str, device):
     return v.float().contiguous()
 
 
-def _launch(entry: str, sources, weight, bias, slope, stride: int, dtype):
+def _describe(sources, dtype):
+    """(source descriptors as ctypes int64 x 5 each, total channels)."""
     if dtype not in _DTYPES:
         raise TypeError(f"conv kernel works in f32/bf16, got {dtype}")
     if not 1 <= len(sources) <= MAX_SOURCES:
@@ -119,14 +125,26 @@ def _launch(entry: str, sources, weight, bias, slope, stride: int, dtype):
                                  int(s.dtype == torch.float32),
                                  int(vec_readable(s, ps))]
         ctot += s.shape[3]
+    return desc, ctot
+
+
+def _pack3x3(weight: torch.Tensor, cin: int, dtype, dev):
+    """OIHW [Cout, cin, 3, 3] -> packed [9, Cout, Kp] in `dtype`, Kp."""
     cout = weight.shape[0]
-    if tuple(weight.shape) != (cout, ctot, 3, 3):
-        raise ValueError(f"weight must be [Cout, {ctot}, 3, 3], got "
+    if tuple(weight.shape) != (cout, cin, 3, 3):
+        raise ValueError(f"weight must be [Cout, {cin}, 3, 3], got "
                          f"{tuple(weight.shape)}")
     if weight.device != dev:
         raise ValueError("weight and input on different devices")
-    w, kp = pack_weight((3, 3, cout), weight.permute(2, 3, 0, 1), ctot,
-                        dtype)
+    return pack_weight((3, 3, cout), weight.permute(2, 3, 0, 1), cin, dtype)
+
+
+def _launch(entry: str, sources, weight, bias, slope, stride: int, dtype):
+    desc, ctot = _describe(sources, dtype)
+    dev = sources[0].device
+    B, H, W, _ = sources[0].shape
+    cout = weight.shape[0]
+    w, kp = _pack3x3(weight, ctot, dtype, dev)
     b = _vec(bias, cout, "bias", dev)
     a = _vec(slope, cout, "slope", dev)
     out = empty_nhwc(B, (H - 1) // stride + 1, (W - 1) // stride + 1, cout,
@@ -177,6 +195,40 @@ def conv3x3_multi(sources: Sequence[torch.Tensor], weight: torch.Tensor,
                 slope, 1, dt)
 
 
-for _fn in (conv3x3, conv3x3_s2, conv3x3_multi):
+def conv3x3_pair(x: torch.Tensor, wa: torch.Tensor, ba: torch.Tensor,
+                 sa: Optional[torch.Tensor], wb: torch.Tensor,
+                 bb: torch.Tensor,
+                 sb: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K12: conv_b(round(PReLU_a(conv_a(x) + ba))) + bb (+ PReLU_b), two
+    stride-1 3x3 convs in x's type; `sa` None runs conv_a without PReLU."""
+    conv3x3_pair.calls += 1
+    dev = x.device
+    if dev.type == "cpu":
+        return conv3x3_pair_plain(x, wa, ba, sa, wb, bb, sb)
+    if dev.type != "cuda":
+        raise ValueError(f"no conv kernel for device {dev}")
+    dt = x.dtype
+    desc, cin = _describe([x], dt)
+    B, H, W, _ = x.shape
+    cmid, cout = wa.shape[0], wb.shape[0]
+    pa, kpa = _pack3x3(wa, cin, dt, dev)
+    pb, kpb = _pack3x3(wb, cmid, dt, dev)
+    vecs = [_vec(v, n, what, dev) for v, n, what in
+            ((ba, cmid, "bias a"), (sa, cmid, "slope a"),
+             (bb, cout, "bias b"), (sb, cout, "slope b"))]
+    ptr = lambda t: 0 if t is None else t.data_ptr()  # noqa: E731
+    out = empty_nhwc(B, H, W, cout, dt, dev)
+    fn = getattr(_build.load_library(), f"conv3x3_pair_{_DTYPES[dt]}")
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(desc, B, H, W, pa.data_ptr(), kpa, ptr(vecs[0]),
+                ptr(vecs[1]), cmid, pb.data_ptr(), kpb, ptr(vecs[2]),
+                ptr(vecs[3]), out.data_ptr(), cout, out.stride(2), stream)
+    _build.check(rc, "conv3x3_pair kernel launch")
+    conv3x3_pair.launches += 1
+    return out
+
+
+for _fn in (conv3x3, conv3x3_s2, conv3x3_multi, conv3x3_pair):
     _fn.calls = 0
     _fn.launches = 0

@@ -10,7 +10,8 @@ taps are summed in f32 in the order (x0,y0), (x1,y0), (x0,y1), (x1,y1)
 and the result is rounded once to the feature's dtype.
 
 This is also the plain version of kernel K2 (`ops.warp_cuda`), which
-computes the same arithmetic in the same order.
+computes the same arithmetic in the same order, and `flow_warp_blend`
+the plain version of K9.
 """
 from __future__ import annotations
 
@@ -65,3 +66,10 @@ def flow_warp(feature: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     x = xs + flow[..., 0].float()
     y = ys + flow[..., 1].float()
     return _sample_xy(feature, x, y)
+
+
+def flow_warp_blend(im0: torch.Tensor, im1: torch.Tensor, flow0: torch.Tensor,
+                    flow1: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
+    """occ * warp(im0, flow0) + (1 - occ) * warp(im1, flow1): the two
+    warps, then the occlusion blend (occ [B, H, W, 1])."""
+    return occ * flow_warp(im0, flow0) + (1 - occ) * flow_warp(im1, flow1)

@@ -1,10 +1,13 @@
-"""Kernel K2 wrapper: bilinear backward warp (`csrc/warp.cu`).
+"""Kernel K2 and K9 wrappers: bilinear backward warp (`csrc/warp.cu`).
 
-Replaces `atmvfi_tpu/ops/warp_pallas.py::flow_warp_tiled` (v3) and its
-pair form `warp_pair_op`. For CPU tensors the wrapper runs the plain
-version `ops.warp.flow_warp`; for CUDA tensors it launches the kernel
-or raises. `flow_warp.launches` / `flow_warp_pair.launches` count the
-kernel launches (one per call on the card).
+`flow_warp` and its pair form `flow_warp_pair` (K2) replace
+`atmvfi_tpu/ops/warp_pallas.py::flow_warp_tiled` (v3), its pair form
+`warp_pair_op` and the other TPU tilings of the same warp (v1, v2,
+nhwc: K11). `flow_warp_blend` (K9) replaces the fused dual warp +
+occlusion blend `flow_warp_blend_tiled`. For CPU tensors each wrapper
+runs its plain version (`ops.warp`); for CUDA tensors it launches the
+kernel or raises. `<fn>.calls` counts the calls on any device,
+`<fn>.launches` the kernel launches (one per call on the card).
 
 Images are NHWC with the channel dim contiguous; the pixel stride may
 be larger than C, so a channel slice of a wider map
@@ -17,6 +20,7 @@ import torch
 
 from atmvfi_tpu_torch.ops import _build
 from atmvfi_tpu_torch.ops.warp import flow_warp as flow_warp_plain
+from atmvfi_tpu_torch.ops.warp import flow_warp_blend as flow_warp_blend_plain
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -70,6 +74,7 @@ def _launch(imgs, flows):
 
 def flow_warp(feature: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Backward-warp `feature` [B, H, W, C] by `flow` [B, H, W, 2]."""
+    flow_warp.calls += 1
     if feature.device.type == "cpu":
         return flow_warp_plain(feature, flow)
     if feature.device.type != "cuda":
@@ -82,6 +87,7 @@ def flow_warp(feature: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
 def flow_warp_pair(im0: torch.Tensor, im1: torch.Tensor, flow0: torch.Tensor,
                    flow1: torch.Tensor):
     """(warp(im0, flow0), warp(im1, flow1)) in one launch on the card."""
+    flow_warp_pair.calls += 1
     if im0.device.type == "cpu":
         return flow_warp_plain(im0, flow0), flow_warp_plain(im1, flow1)
     if im0.device.type != "cuda":
@@ -91,5 +97,40 @@ def flow_warp_pair(im0: torch.Tensor, im1: torch.Tensor, flow0: torch.Tensor,
     return out0, out1
 
 
-flow_warp.launches = 0
-flow_warp_pair.launches = 0
+def flow_warp_blend(im0: torch.Tensor, im1: torch.Tensor, flow0: torch.Tensor,
+                    flow1: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
+    """K9: occ * warp(im0, flow0) + (1 - occ) * warp(im1, flow1) on f32
+    images, flows and occlusion [B, H, W, 1]; one f32 output."""
+    flow_warp_blend.calls += 1
+    if im0.device.type == "cpu":
+        return flow_warp_blend_plain(im0, im1, flow0, flow1, occ)
+    if im0.device.type != "cuda":
+        raise ValueError(f"no warp blend for device {im0.device}")
+    if im0.dtype != torch.float32 or im1.dtype != torch.float32:
+        raise TypeError("warp blend kernel takes f32 images")
+    ps = _check(im0, flow0)
+    if (im1.shape != im0.shape or flow1.shape != flow0.shape
+            or _check(im1, flow1) != ps):
+        raise ValueError("warp blend operands must match in shape and "
+                         "pixel stride")
+    B, H, W, C = im0.shape
+    if (occ.dtype != torch.float32 or tuple(occ.shape) != (B, H, W, 1)
+            or not occ.is_contiguous() or occ.device != im0.device):
+        raise ValueError(f"occlusion must be contiguous f32 [{B}, {H}, {W}, "
+                         f"1] on {im0.device}, got {tuple(occ.shape)}")
+    out = torch.empty((B, H, W, C), dtype=torch.float32, device=im0.device)
+    lib = _build.load_library()
+    with torch.cuda.device(im0.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.warp_blend_f32(im0.data_ptr(), im1.data_ptr(),
+                                flow0.data_ptr(), flow1.data_ptr(),
+                                occ.data_ptr(), out.data_ptr(), B, H, W, C,
+                                ps, stream)
+    _build.check(rc, "warp blend kernel launch")
+    flow_warp_blend.launches += 1
+    return out
+
+
+for _fn in (flow_warp, flow_warp_pair, flow_warp_blend):
+    _fn.calls = 0
+    _fn.launches = 0

@@ -1,9 +1,12 @@
 """Where the time of the two-frame serving path goes, on one GPU.
 
     python -m atmvfi_tpu_torch.tools.profile_main_path [--model base|lite]
+        [--attention_impl pallas] [--warp_impl tiled_blend] [--fuse_pairs]
+        [--fast]
 
 Runs `InterpolationPipeline.interpolate_device` (bf16 towers, global
-motion on, seeded weights, 1088x1920 frames already on the card) for
+motion on, seeded weights, 1088x1920 frames already on the card; the
+route fields of `models.config` as the flags set them) for
 five frames under torch.profiler after a warm-up and prints one JSON
 line: host-clock ms per frame, device busy ms per frame
 (the sum of kernel times), the device's idle share over the profiled
@@ -24,9 +27,11 @@ from collections import defaultdict
 STAGES = ("encoder", "global_motion", "prealign", "local_motion", "enhance",
           "decoder", "refine")
 FAMILIES = (  # first match wins
+    ("K12 conv pair", r"pair_bf16_kernel|pair_f32_kernel"),
     ("K3-K6 conv kernels", r"igemm_"),
-    ("K1 atm_block", r"gemm_bf16_kernel|gemm_f32_kernel|attn_kernel"),
-    ("K2 warp", r"warp_narrow_kernel|warp_wide_kernel"),
+    ("K1 / K7 attention", r"gemm_bf16_kernel|gemm_f32_kernel|attn_kernel"),
+    ("K2 / K9 warp", r"warp_narrow_kernel|warp_wide_kernel|"
+                     r"warp_blend_kernel"),
     ("conv (cuDNN)", r"conv|cudnn|fprop|dgrad|wgrad|implicit|nchw|nhwc"),
     ("dense (cuBLAS)", r"gemm|cublas|nvjet"),
     ("elementwise / copy", r"elementwise|vectorized|copy|cat|index|pad|"
@@ -44,19 +49,33 @@ def family(name: str) -> str:
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--model", choices=["base", "lite"], default="base")
+    p.add_argument("--attention_impl", default="auto")
+    p.add_argument("--warp_impl", default="auto")
+    p.add_argument("--fuse_pairs", action="store_true",
+                   help="hcw_fuse_pairs: the conv pairs as K12")
+    p.add_argument("--fast", action="store_true",
+                   help="the serving profile (composed full-res warps)")
     args = p.parse_args(argv)
+
+    import dataclasses
 
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from atmvfi_tpu_torch.infer import InterpolationPipeline
+    from atmvfi_tpu_torch.models import get_config
 
     if not torch.cuda.is_available():
         print("profile_main_path: no CUDA device", file=sys.stderr)
         return 2
-    pipe = InterpolationPipeline(None, args.model, torch.bfloat16,
-                                 global_motion=True, device="cuda")
+    cfg = dataclasses.replace(get_config(args.model),
+                              attention_impl=args.attention_impl,
+                              warp_impl=args.warp_impl,
+                              hcw_fuse_pairs=args.fuse_pairs)
+    pipe = InterpolationPipeline(None, cfg, torch.bfloat16,
+                                 global_motion=True, device="cuda",
+                                 fast=args.fast)
     g = torch.Generator(device="cuda").manual_seed(0)
     H, W, n = 1088, 1920, 5
     x0 = torch.rand(1, H, W, 3, generator=g, device="cuda")
@@ -101,6 +120,9 @@ def main(argv=None) -> int:
                          text=True, timeout=60, check=True).stdout.strip()
     print(json.dumps(dict(
         model=args.model, dtype="bf16", size=[H, W], global_motion=True,
+        attention_impl=pipe.cfg.attention_impl, warp_impl=pipe.cfg.warp_impl,
+        hcw_fuse_pairs=pipe.cfg.hcw_fuse_pairs,
+        compose_full_res_warps=pipe.cfg.compose_full_res_warps,
         frames=n, gpu=smi,
         wall_ms_per_frame=wall * 1e3 / n,
         device_busy_ms_per_frame=ms(busy),

@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (`atmvfi_tpu_torch`) on one GPU.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --conv-sites   # the build and phase 3 alone
 
 Phases, one JSON object per line:
   1. device: the card (nvidia-smi name and power limit), torch and CUDA
@@ -15,14 +16,28 @@ Phases, one JSON object per line:
      the library call that computes the same function (F.grid_sample
      for the warp; for the conv kernels K3-K6 the cuDNN conv + bias +
      F.prelu that they replace), at every distinct conv site.
-  4. main path: InterpolationPipeline.interpolate (base, bf16 towers,
-     global motion on, seeded weights) on three 1080x1920 frame pairs;
-     checks the output and the kernel launch counts, reports ms/frame.
-  5. agreement: seeded f32 models on the card (kernels) against the
+  4. route kernels: K7 / K8 (window attention + motion, packed and
+     head-major) at the three window shapes, K9 (fused warp + blend) at
+     the five blend sites and K12 (fused conv pair) at its four sites,
+     against their plain versions, with CUDA-event times, bounds, the
+     plain version's time and yardsticks (scaled_dot_product_attention,
+     out only; grid_sample pair + blend and the K2 pair + blend; the two
+     K3 launches and cuDNN conv + bias + F.prelu twice).
+  5. main path: InterpolationPipeline.interpolate (base, bf16 towers,
+     global motion on, seeded weights) on 1080x1920 frame pairs: the
+     default routes (three frames), then the opt-in routes
+     (attention_impl="pallas", warp_impl="tiled_blend",
+     hcw_fuse_pairs=True) and the fast serving profile (two frames
+     each); each run checks the output and the kernel launch counts of
+     every wrapper (set to 0 just before it) and reports ms/frame.
+  6. agreement: seeded f32 models on the card (kernels) against the
      port on the CPU (plain versions) at 256x448: base with global
-     motion, lite with and without it.
+     motion, lite with and without it, base on the opt-in routes and
+     base under the fast profile.
 Then the {"kernels": [...]} line, the card's name and power limit, and
-the last line {"ok": true, "device": {...}}. Any failed phase raises
+the last line {"ok": true, "device": {...}}. With --conv-sites it runs
+only the build and the K3-K6 sites and prints their times as one JSON
+line (to compare two checkouts in one call). Any failed phase raises
 and the script exits non-zero; without a CUDA device, or without the
 repo beside it, it exits non-zero before printing any result.
 """
@@ -47,6 +62,16 @@ PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 PER_FORWARD = {"atm_block": 6, "flow_warp_pair": 9, "flow_warp": 4,
                "conv3x3": 22, "conv3x3_s2": 7, "conv3x3_multi": 2,
                "deconv2x": 6}
+# the opt-in routes: K7 for K1, K9 at the 5 blend sites (beside their K2
+# pair warps), K12 for the 3 decoder conv pairs and the refine head
+ROUTES = dict(attention_impl="pallas", warp_impl="tiled_blend",
+              hcw_fuse_pairs=True)
+ROUTES_PER_FORWARD = {"window_attention": 6, "flow_warp_blend": 5,
+                      "flow_warp_pair": 9, "flow_warp": 4, "conv3x3": 14,
+                      "conv3x3_s2": 7, "conv3x3_multi": 2, "deconv2x": 6,
+                      "conv3x3_pair": 4}
+# the fast profile: no full-resolution pre-align pair (3 + 5 blends)
+FAST_PER_FORWARD = dict(PER_FORWARD, flow_warp_pair=8)
 
 # every conv-kernel site of the base main path at 1088x1920 (global
 # motion on; frames stacked, so the encoder runs on batch 2):
@@ -140,6 +165,26 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
                                      "operations")
 
 
+def edge_flow(torch, g, B: int, H: int, W: int, mag: float):
+    """Random flows of magnitude `mag`, pushed outward near the border
+    so taps fall off every edge."""
+    f = (torch.rand(B, H, W, 2, generator=g, device="cuda") * 2 - 1) * mag
+    f[:, :, :8, 0] -= mag      # taps off the left edge
+    f[:, :, -8:, 0] += mag     # right
+    f[:, :8, :, 1] -= mag      # top
+    f[:, -8:, :, 1] += mag     # bottom
+    return f.contiguous()
+
+
+def grid_of(torch, flow):
+    """grid_sample's normalised grid (align_corners) for a pixel flow."""
+    _, H, W, _ = flow.shape
+    ys, xs = torch.meshgrid(torch.arange(H, device="cuda"),
+                            torch.arange(W, device="cuda"), indexing="ij")
+    return torch.stack([(xs + flow[..., 0]) * (2.0 / (W - 1)) - 1,
+                        (ys + flow[..., 1]) * (2.0 / (H - 1)) - 1], -1)
+
+
 # ---------------------------------------------------------------------
 def block_case(torch, net, which: str, dtype):
     """(args, info) of one K1 call at the base 1080p main-path shapes,
@@ -231,22 +276,6 @@ def phase_kernels(torch):
 
     g = torch.Generator(device="cuda").manual_seed(2)
 
-    def edge_flow(B, H, W, mag):
-        f = (torch.rand(B, H, W, 2, generator=g, device="cuda") * 2 - 1) * mag
-        f[:, :, :8, 0] -= mag      # taps off the left edge
-        f[:, :, -8:, 0] += mag     # right
-        f[:, :8, :, 1] -= mag      # top
-        f[:, -8:, :, 1] += mag     # bottom
-        return f.contiguous()
-
-    def grid_of(flow):
-        B, H, W, _ = flow.shape
-        ys, xs = torch.meshgrid(torch.arange(H, device="cuda"),
-                                torch.arange(W, device="cuda"), indexing="ij")
-        gx = (xs + flow[..., 0]) * (2.0 / (W - 1)) - 1
-        gy = (ys + flow[..., 1]) * (2.0 / (H - 1)) - 1
-        return torch.stack([gx, gy], -1)
-
     # pair warps of the main path, full resolution down to 1/16 (C = 3)
     # and the 1/8 feature warps (C = 384), as (shape, dtype, launches of
     # this shape per forward, checked tolerance)
@@ -261,14 +290,15 @@ def phase_kernels(torch):
             n_img = 2 if kind == "flow_warp_pair" else 1
             imgs = [torch.rand(shape, generator=g, device="cuda").to(dtype)
                     for _ in range(n_img)]
-            flows = [edge_flow(B, H, W, 40.0 * H / 1088 if C == 3 else 8.0)
+            flows = [edge_flow(torch, g, B, H, W,
+                               40.0 * H / 1088 if C == 3 else 8.0)
                      for _ in range(n_img)]
             if kind == "flow_warp_pair":
                 run = lambda: warp_cuda.flow_warp_pair(*imgs, *flows)  # noqa
             else:
                 run = lambda: (warp_cuda.flow_warp(imgs[0], flows[0]),)  # noqa
             plain = lambda: [warp_plain(i, f) for i, f in zip(imgs, flows)]  # noqa
-            grids = [grid_of(f) for f in flows]
+            grids = [grid_of(torch, f) for f in flows]
             # grid_sample takes its grid in the input's dtype: time it on
             # the f32 values of the images (exact for bf16 ones)
             nchw = [i.float().permute(0, 3, 1, 2) for i in imgs]
@@ -413,6 +443,208 @@ def phase_conv_kernels(torch):
     return results
 
 
+# window shapes of the attention sites at base 1080p: (site, tokens
+# h x w of one frame, window, shift); the two frames' windows are stacked
+ATTN_SITES = [("local", 136, 240, 8, 4, True), ("global", 68, 120, 12, 6, True),
+              ("enhance", 136, 240, 8, 0, False)]
+# K9 blend sites (1/16 ... full resolution) and K12 sites: (site, H, W,
+# Cin, Cmid, Cout, PReLU after conv_b)
+BLEND_SITES = [(1088 >> k, 1920 >> k) for k in (4, 3, 2, 1, 0)]
+PAIR_SITES = [("decoder 1/4", 272, 480, 389, 389, 389, False),
+              ("decoder 1/2", 544, 960, 197, 197, 197, False),
+              ("decoder 1/1", 1088, 1920, 101, 101, 101, False),
+              ("refine head", 1088, 1920, 128, 64, 3, True)]
+
+
+def phase_route_kernels(torch):
+    """K7 / K8, K9 and K12 against their plain versions at the main-path
+    shapes of the opt-in routes."""
+    import torch.nn.functional as F
+
+    from atmvfi_tpu_torch import ops
+    from atmvfi_tpu_torch.ops import attention as attn_plain
+    from atmvfi_tpu_torch.ops import attention_cuda, conv_cuda, warp_cuda
+    from atmvfi_tpu_torch.ops import conv as conv_plain
+    from atmvfi_tpu_torch.ops import warp as warp_plain
+    from atmvfi_tpu_torch.ops.conv_cuda import empty_nhwc
+
+    results = {"window_attention": [], "window_attention_heads": [],
+               "flow_warp_blend": [], "conv3x3_pair": []}
+    g = torch.Generator(device="cuda").manual_seed(6)
+    tol = {torch.float32: ("max", 1e-4), torch.bfloat16: ("mean", 5e-3)}
+    heads = 8
+    for site, h, w, ws, ss, motion in ATTN_SITES:
+        C = 672 if site == "global" else 384
+        hd = C // heads
+        mask = ops.attn_mask_for(h, w, ws, ss, "cuda")
+        rel = ops.relative_coords(ws, "cuda") if motion else None
+        BW, N = 2 * -(-h // ws) * -(-w // ws), ws * ws  # windows, padded map
+        for dtype in (torch.float32, torch.bfloat16):
+            qkv = torch.randn(BW, N, 3 * C, generator=g, device="cuda").to(dtype)
+            heads_of = lambda t: t.reshape(BW, N, heads, hd).transpose(1, 2)  # noqa
+            q, kv = qkv[..., :C], qkv[..., C:]
+            qh, kh, vh = (heads_of(t).contiguous()
+                          for t in (q, kv[..., :C], kv[..., C:]))
+            full = (None if mask is None else
+                    mask.repeat(BW // mask.shape[0], 1, 1)[:, None].to(dtype))
+            scale = hd ** -0.5
+            for kind in ("window_attention", "window_attention_heads"):
+                if kind == "window_attention":
+                    args = (q, kv, scale, rel, mask, heads)
+                    plain = attn_plain.window_attention
+                else:
+                    args = (qh, kh, vh, scale, rel, mask)
+                    plain = attn_plain.window_attention_heads
+                fn = getattr(attention_cuda, kind)
+                with torch.no_grad():
+                    (o, m), (orf, mrf) = fn(*args), plain(*args)
+                    torch.cuda.synchronize()
+                    do = (o.float() - orf.float()).abs()
+                    dm = ((m.float() - mrf.float()).abs() if motion
+                          else torch.zeros(1, device="cuda"))
+                    stat, lim = tol[dtype]
+                    err = (max(do.max().item(), dm.max().item())
+                           if stat == "max"
+                           else max(do.mean().item(), dm.mean().item()))
+                    ms = cuda_ms(lambda: fn(*args), 10)
+                    plain_ms = cuda_ms(lambda: plain(*args), 5)
+                    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                        qh, kh, vh, attn_mask=full, scale=scale), 10)
+                s_ = qkv.element_size()
+                nbytes = (4 * BW * N * C * s_
+                          + (mask.numel() * 4 if mask is not None else 0)
+                          + (2 * N * N * 4 + BW * N * 2 * heads * s_
+                             if motion else 0))
+                flops = (4 * BW * heads * N * N * hd
+                         + (4 * BW * heads * N * N if motion else 0))
+                dt = "f32" if dtype == torch.float32 else "bf16"
+                b_ms, b_by = bound_ms(nbytes, flops, dt)
+                name = "K7" if kind == "window_attention" else "K8"
+                rec = dict(phase="kernel", kernel=f"{name} {kind}", case=site,
+                           dtype=dt, BW=BW, N=N, C=C, heads=heads,
+                           mask=mask is not None, motion=motion,
+                           max_abs_err=do.max().item(),
+                           mean_abs_err=do.mean().item(),
+                           motion_max_abs_err=dm.max().item(), ms=ms,
+                           plain_ms=plain_ms, library_ms=lib_ms,
+                           library="scaled_dot_product_attention, out only",
+                           bound_ms=b_ms, bound_by=b_by, flops=flops,
+                           bytes=nbytes)
+                emit(rec)
+                if not err <= lim:
+                    raise AssertionError(f"{name} {site} {dt}: {stat} |d| "
+                                         f"{err} > {lim}")
+                results[kind].append(rec)
+            del qkv, q, kv, qh, kh, vh, full
+    torch.cuda.empty_cache()
+
+    for H, W in BLEND_SITES:
+        im0, im1 = (torch.rand(1, H, W, 3, generator=g, device="cuda")
+                    for _ in range(2))
+        f0, f1 = (edge_flow(torch, g, 1, H, W, 40.0 * H / 1088)
+                  for _ in range(2))
+        occ = torch.rand(1, H, W, 1, generator=g, device="cuda")
+        args = (im0, im1, f0, f1, occ)
+        grids = [grid_of(torch, f) for f in (f0, f1)]
+        nchw = [i.permute(0, 3, 1, 2) for i in (im0, im1)]
+        occ_c = occ.permute(0, 3, 1, 2)
+
+        def library():
+            w0, w1 = (F.grid_sample(i, gr, mode="bilinear",
+                                    padding_mode="zeros", align_corners=True)
+                      for i, gr in zip(nchw, grids))
+            return occ_c * w0 + (1 - occ_c) * w1
+
+        def k2_pair_blend():
+            w0, w1 = warp_cuda.flow_warp_pair(im0, im1, f0, f1)
+            return occ * w0 + (1 - occ) * w1
+
+        out = warp_cuda.flow_warp_blend(*args)
+        ref = warp_plain.flow_warp_blend(*args)
+        torch.cuda.synchronize()
+        err = (out - ref).abs().max().item()
+        pair_err = (k2_pair_blend() - ref).abs().max().item()
+        reps = 50 if H >= 544 else 200
+        ms = cuda_ms(lambda: warp_cuda.flow_warp_blend(*args), reps)
+        plain_ms = cuda_ms(lambda: warp_plain.flow_warp_blend(*args), reps)
+        lib_ms = cuda_ms(library, reps)
+        pair_ms = cuda_ms(k2_pair_blend, reps)
+        nbytes = H * W * (2 * 3 * 4 + 2 * 2 * 4 + 4 + 3 * 4)
+        b_ms, b_by = bound_ms(nbytes, H * W * (14 * 3 + 30), "f32")
+        rec = dict(phase="kernel", kernel="K9 flow_warp_blend",
+                   shape=[1, H, W, 3], dtype="f32", per_forward=1,
+                   max_abs_err=err, k2_pair_blend_max_abs_err=pair_err,
+                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   library="2 x grid_sample + blend",
+                   k2_pair_blend_ms=pair_ms, bound_ms=b_ms, bound_by=b_by,
+                   bytes=nbytes)
+        emit(rec)
+        if not err <= 1e-6:
+            raise AssertionError(f"K9 {H}x{W}: max |d| {err} > 1e-6")
+        results["flow_warp_blend"].append(rec)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=g, device="cuda") * 2 - 1
+
+    bf16 = torch.bfloat16
+    for site, H, W, cin, cmid, cout, prelu_b in PAIR_SITES:
+        wa = rand(cmid, cin, 3, 3) / (9 * cin) ** 0.5
+        wb = rand(cout, cmid, 3, 3) / (9 * cmid) ** 0.5
+        ba, bb = rand(cmid) * 0.1, rand(cout) * 0.1
+        sa, sb = rand(cmid) * 0.3, (rand(cout) * 0.3 if prelu_b else None)
+        x = rand(1, H, W, cin)
+        err = {}
+        for dt in (torch.float32, bf16):  # xs stays the bf16 input
+            # as the main path hands it over: a K6 output (pixel stride
+            # rounded up to 8) or a dense concat
+            xs = empty_nhwc(1, H, W, cin, dt, "cuda").copy_(x)
+            with torch.no_grad():
+                y = conv_cuda.conv3x3_pair(xs, wa, ba, sa, wb, bb, sb)
+                yr = conv_plain.conv3x3_pair(xs, wa, ba, sa, wb, bb, sb)
+                torch.cuda.synchronize()
+                d = (y.float() - yr.float()).abs()
+            if y.dtype != dt or not bool(torch.isfinite(y).all()):
+                raise AssertionError(f"K12 {site}: bad output {y.dtype}")
+            err[dt] = (d.max().item(), d.mean().item())
+            del y, yr, d
+        dense = x.to(bf16)
+
+        def library():
+            y = F.prelu(F.conv2d(dense.permute(0, 3, 1, 2), wa.to(bf16),
+                                 ba.to(bf16), 1, 1), sa.to(bf16))
+            y = F.conv2d(y, wb.to(bf16), bb.to(bf16), 1, 1)
+            return y if sb is None else F.prelu(y, sb.to(bf16))
+
+        run = lambda: conv_cuda.conv3x3_pair(xs, wa, ba, sa, wb, bb, sb)  # noqa
+        ref = lambda: conv_plain.conv3x3_pair(xs, wa, ba, sa, wb, bb, sb)  # noqa
+        k3 = lambda: conv_cuda.conv3x3(conv_cuda.conv3x3(xs, wa, ba, sa),  # noqa
+                                       wb, bb, sb)
+        with torch.no_grad():
+            ms, plain_ms, lib_ms, k3_ms = (cuda_ms(f, 5) for f in
+                                           (run, ref, library, k3))
+        nbytes = (H * W * (cin + cout) * 2
+                  + 4 * (wa.numel() + wb.numel()) + 4 * 2 * (cmid + cout))
+        flops = 2 * H * W * 9 * (cin * cmid + cmid * cout)
+        b_ms, b_by = bound_ms(nbytes, flops, "bf16")
+        (f_max, _), (h_max, h_mean) = err[torch.float32], err[bf16]
+        rec = dict(phase="kernel", kernel="K12 conv3x3_pair", site=site,
+                   shape=[1, H, W], channels=[cin, cmid, cout],
+                   prelu_b=prelu_b, per_forward=1, f32_max_abs_err=f_max,
+                   bf16_mean_abs_err=h_mean, bf16_max_abs_err=h_max,
+                   max_abs_err=max(f_max, h_max), ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, library="cuDNN conv + bias + F.prelu, "
+                   "twice", two_k3_ms=k3_ms, bound_ms=b_ms, bound_by=b_by,
+                   flops=flops, bytes=nbytes)
+        emit(rec)
+        if not (f_max <= 1e-4 and h_mean <= 1e-3):
+            raise AssertionError(f"K12 {site}: f32 max |d| {f_max} (<= 1e-4),"
+                                 f" bf16 mean |d| {h_mean} (<= 1e-3)")
+        results["conv3x3_pair"].append(rec)
+        del xs, x, dense
+        torch.cuda.empty_cache()
+    return results
+
+
 def smooth_frames(torch, n: int, H: int, W: int, seed: int):
     """n uint8 frame pairs: smooth random images, the second moved by a
     few pixels, made on the CPU from a seed."""
@@ -433,27 +665,45 @@ def smooth_frames(torch, n: int, H: int, W: int, seed: int):
     return pairs
 
 
-def phase_main_path(torch):
-    from atmvfi_tpu_torch.infer import InterpolationPipeline
-    from atmvfi_tpu_torch.ops import (attention_cuda, conv_cuda,
-                                      deconv_cuda, warp_cuda)
+COUNTED = {  # wrapper name -> (module, attribute) of every kernel wrapper
+    "atm_block": ("attention_cuda", "atm_block"),
+    "window_attention": ("attention_cuda", "window_attention"),
+    "window_attention_heads": ("attention_cuda", "window_attention_heads"),
+    "flow_warp_pair": ("warp_cuda", "flow_warp_pair"),
+    "flow_warp": ("warp_cuda", "flow_warp"),
+    "flow_warp_blend": ("warp_cuda", "flow_warp_blend"),
+    "conv3x3": ("conv_cuda", "conv3x3"),
+    "conv3x3_s2": ("conv_cuda", "conv3x3_s2"),
+    "conv3x3_multi": ("conv_cuda", "conv3x3_multi"),
+    "conv3x3_pair": ("conv_cuda", "conv3x3_pair"),
+    "deconv2x": ("deconv_cuda", "deconv2x"),
+}
 
-    counters = {"atm_block": attention_cuda.atm_block,
-                "flow_warp_pair": warp_cuda.flow_warp_pair,
-                "flow_warp": warp_cuda.flow_warp,
-                "conv3x3": conv_cuda.conv3x3,
-                "conv3x3_s2": conv_cuda.conv3x3_s2,
-                "conv3x3_multi": conv_cuda.conv3x3_multi,
-                "deconv2x": deconv_cuda.deconv2x}
-    pipe = InterpolationPipeline(None, "base", torch.bfloat16,
-                                 global_motion=True, device="cuda")
-    frames = smooth_frames(torch, 4, 1080, 1920, seed=3)
-    pipe.interpolate(*frames[0])  # warm-up: cuDNN plans, masks
+
+def phase_main_path(torch, name: str, routes: dict, fast: bool,
+                    per_forward: dict, frames: int):
+    """One run of the serving path; every wrapper's count is set to 0
+    just before the timed frames and read just after."""
+    import dataclasses
+    import importlib
+
+    from atmvfi_tpu_torch.infer import InterpolationPipeline
+    from atmvfi_tpu_torch.models import get_config
+
+    counters = {k: getattr(importlib.import_module(
+        f"atmvfi_tpu_torch.ops.{mod}"), attr)
+        for k, (mod, attr) in COUNTED.items()}
+    cfg = dataclasses.replace(get_config("base"), **routes)
+    pipe = InterpolationPipeline(None, cfg, torch.bfloat16,
+                                 global_motion=True, device="cuda",
+                                 fast=fast)
+    pairs = smooth_frames(torch, frames + 1, 1080, 1920, seed=3)
+    pipe.interpolate(*pairs[0])  # warm-up: cuDNN plans, masks
     torch.cuda.synchronize()
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    outs = [pipe.interpolate(f0, f1) for f0, f1 in frames[1:]]
+    outs = [pipe.interpolate(f0, f1) for f0, f1 in pairs[1:]]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
@@ -461,32 +711,42 @@ def phase_main_path(torch):
     for o in outs:
         if o.shape != (1080, 1920, 3) or o.dtype.name != "uint8":
             raise AssertionError(f"bad output {o.shape} {o.dtype}")
-    for k, per in PER_FORWARD.items():
-        if launches[k] != per * n:
-            raise AssertionError(f"{k}: {launches[k]} launches in {n} "
-                                 f"forwards, expected {per} each")
+    for k in COUNTED:
+        if launches[k] != per_forward.get(k, 0) * n:
+            raise AssertionError(f"{name}: {k}: {launches[k]} launches in "
+                                 f"{n} forwards, expected "
+                                 f"{per_forward.get(k, 0)} each")
     # the middle frame of a shifted pair lies near both inputs
-    f0, f1 = frames[1]
+    f0, f1 = pairs[1]
     err = float(abs(outs[0].astype("float32") - f0.astype("float32")).mean())
-    emit(dict(phase="main_path", model="base", dtype="bf16", frames=n,
-              size=[1080, 1920], padded=[1088, 1920],
-              ms_per_frame=dt * 1e3 / n, launches=launches,
-              mean_abs_diff_to_frame0_u8=err, gpu=nvidia_smi_line()))
+    emit(dict(phase="main_path", config=name, model="base", dtype="bf16",
+              routes=routes, fast=fast, frames=n, size=[1080, 1920],
+              padded=[1088, 1920], ms_per_frame=dt * 1e3 / n,
+              launches=launches, mean_abs_diff_to_frame0_u8=err,
+              gpu=nvidia_smi_line()))
+    del pipe
+    torch.cuda.empty_cache()
     return launches
 
 
 def phase_agreement(torch):
     """Seeded f32 models on the card (kernels) against the port on the
     CPU (plain versions): base with global motion, lite with and
-    without it."""
+    without it, base on the opt-in routes and under the fast profile."""
+    import dataclasses
+
     from atmvfi_tpu_torch.models import Network, get_config
 
     H, W = 256, 448
     f0, f1 = smooth_frames(torch, 1, H, W, seed=5)[0]
     ims = [torch.from_numpy(f).float()[None] / 255.0 for f in (f0, f1)]
-    for model, global_motion in (("base", True), ("lite", True),
-                                 ("lite", False)):
-        net = Network(get_config(model)).eval()  # seed 0, f32
+    base = get_config("base")
+    for model, global_motion, cfg in (
+            ("base", True, base), ("lite", True, get_config("lite")),
+            ("lite", False, get_config("lite")),
+            ("base routes", True, dataclasses.replace(base, **ROUTES)),
+            ("base fast", True, base.fast())):
+        net = Network(cfg).eval()  # seed 0, f32
         with torch.no_grad():
             cpu = net(*ims, global_motion=global_motion)["I_t"]
             net = net.cuda()
@@ -505,7 +765,9 @@ def phase_agreement(torch):
 
 def kernel_line(results, launches):
     """One entry per kernel wrapper; times are per launch, averaged over
-    the cases of one forward weighted by their launches per forward."""
+    the cases of one forward weighted by their launches per forward.
+    `launches` holds each wrapper's count from the run of the path it is
+    on, and "k11" the K2 launches of the fast profile's run."""
     meta = {
         "atm_block": ("K1 fused ATM block", "atmvfi_tpu_torch/csrc/atm_block.cu",
                       "atmvfi_tpu/ops/attention_pallas.py:435"),
@@ -527,18 +789,39 @@ def kernel_line(results, launches):
         "deconv2x": ("K6 deconv2x + bias + PReLU",
                      "atmvfi_tpu_torch/csrc/deconv2x.cu",
                      "atmvfi_tpu/ops/deconv_pallas.py:102"),
+        "window_attention": ("K7 window attention + motion, packed",
+                             "atmvfi_tpu_torch/csrc/atm_block.cu",
+                             "atmvfi_tpu/ops/attention_pallas.py:233"),
+        "window_attention_heads": ("K8 window attention + motion, "
+                                   "head-major (K7's kernel)",
+                                   "atmvfi_tpu_torch/csrc/atm_block.cu",
+                                   "atmvfi_tpu/ops/attention_pallas.py:119"),
+        "flow_warp_blend": ("K9 fused dual warp + occlusion blend",
+                            "atmvfi_tpu_torch/csrc/warp.cu",
+                            "atmvfi_tpu/ops/warp_pallas.py:437"),
+        "k11": ("K11 warp routes (tiled v1 / v2 / nhwc, unchecked), "
+                "served by K2", "atmvfi_tpu_torch/csrc/warp.cu",
+                "atmvfi_tpu/ops/warp_pallas.py:42"),
+        "conv3x3_pair": ("K12 fused conv3x3 pair",
+                         "atmvfi_tpu_torch/csrc/conv_pair.cu",
+                         "atmvfi_tpu/ops/conv_pallas.py:1371"),
     }
+    results = dict(results, k11=results["flow_warp_pair"]
+                   + results["flow_warp"])
     out = []
-    for k, recs in results.items():
-        if k == "atm_block":  # the main path runs bf16, 2 calls per case
+    for k, (name, src, rep) in meta.items():
+        recs = results[k]
+        if k in ("atm_block", "window_attention"):
+            # the main paths run bf16, 2 calls per window shape
             used = [(r, 2) for r in recs if r["dtype"] == "bf16"]
+        elif k == "window_attention_heads":  # on no main path
+            used = [(r, 1) for r in recs if r["dtype"] == "bf16"]
         else:
             used = [(r, r["per_forward"]) for r in recs if r["per_forward"]]
         n = sum(w for _, w in used)
         avg = lambda key: sum(r[key] * w for r, w in used) / n  # noqa: E731
         lib = (avg("library_ms") if all("library_ms" in r for r, _ in used)
                else None)
-        name, src, rep = meta[k]
         out.append(dict(
             name=name, route="cuda", source=src, replaces=rep,
             launches=launches[k],
@@ -576,9 +859,24 @@ def main() -> int:
               ptxas=[ln.strip() for ln in _build.ptxas_log.splitlines()
                      if "registers" in ln or "spill" in ln
                      or "Compiling entry" in ln][:80]))
+    if sys.argv[1:] == ["--conv-sites"]:
+        sites = {r["site"] + f" ({k})": r["ms"]
+                 for k, recs in phase_conv_kernels(torch).items()
+                 for r in recs}
+        emit(dict(conv_site_ms=sites, sum_ms=sum(sites.values()),
+                  gpu=nvidia_smi_line()))
+        return 0
     results = phase_kernels(torch)
     results.update(phase_conv_kernels(torch))
-    launches = phase_main_path(torch)
+    results.update(phase_route_kernels(torch))
+    launches = phase_main_path(torch, "default", {}, False, PER_FORWARD, 3)
+    routes = phase_main_path(torch, "routes", ROUTES, False,
+                             ROUTES_PER_FORWARD, 2)
+    fast = phase_main_path(torch, "fast", {}, True, FAST_PER_FORWARD, 2)
+    for k in ROUTES_PER_FORWARD:  # the kernels the default path does not run
+        if k not in PER_FORWARD:
+            launches[k] = routes[k]
+    launches["k11"] = fast["flow_warp_pair"] + fast["flow_warp"]
     phase_agreement(torch)
     emit(kernel_line(results, launches))
     print(nvidia_smi_line(), flush=True)
