@@ -2,6 +2,7 @@
 
     python -m atmvfi_tpu_torch.cli.demo_2x --frame0 a.png --frame1 b.png \
         --out mid.png [--model_type lite] [--ckpt model.pt] [--fp32] [--fast]
+        [--ensemble_global] [--spatial_shards N]
     python -m atmvfi_tpu_torch.cli.demo_2x --frames_dir frames/ \
         --factor 4 --out out_dir/
 
@@ -13,6 +14,11 @@ smoke run, not a result). --device cpu runs the plain PyTorch versions
 of the kernels on the CPU. --fast is the serving profile: the
 full-resolution global pre-alignment is folded into the final flows (a
 small documented deviation from the default forward).
+--ensemble_global picks the global motion of the frames at full, 1/2 or
+1/4 size that aligns them best. --spatial_shards N splits each frame
+pair into N row slabs (`parallel.make_spatial_forward`), spread over the
+visible cards in turn (all N on one card when there is one); it prints
+the device of each shard.
 """
 from __future__ import annotations
 
@@ -63,23 +69,44 @@ def main(argv=None) -> int:
                    help="f32 towers (parity mode); default bf16")
     p.add_argument("--fast", action="store_true",
                    help="serving profile: composed full-res warps")
+    p.add_argument("--ensemble_global", action="store_true",
+                   help="multiscale global motion ensemble")
+    p.add_argument("--spatial_shards", type=int, default=1,
+                   help="split each frame pair into N row slabs")
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
+    if args.spatial_shards < 1:
+        p.error("--spatial_shards must be >= 1")
 
     import torch
 
     from atmvfi_tpu_torch.infer import InterpolationPipeline, load_pipeline
 
+    from atmvfi_tpu_torch.parallel import make_mesh
+
     dtype = torch.float32 if args.fp32 else torch.bfloat16
+    mesh = None
+    if args.spatial_shards > 1:
+        n = args.spatial_shards
+        if torch.device(args.device).type == "cuda" and \
+                torch.cuda.is_available():
+            cards = torch.cuda.device_count()
+            devices = [f"cuda:{i % cards}" for i in range(n)]
+        else:
+            devices = [args.device] * n
+        mesh = make_mesh((1, n), devices)
     kw = dict(variant=args.model_type, dtype=dtype,
-              global_motion=not args.global_off, device=args.device,
-              fast=args.fast)
+              global_motion=not args.global_off,
+              ensemble_global_motion=args.ensemble_global,
+              device=args.device, fast=args.fast, mesh=mesh)
     if args.ckpt:
         pipe = load_pipeline(args.ckpt, **kw)
     else:
         print("WARNING: no --ckpt given; running seeded random weights "
               "(smoke mode)", file=sys.stderr)
         pipe = InterpolationPipeline(None, **kw)
+    for i, d in enumerate(pipe.shard_devices):
+        print(f"shard {i}: {d}")
 
     if args.frames_dir:
         names = sorted(n for n in os.listdir(args.frames_dir)

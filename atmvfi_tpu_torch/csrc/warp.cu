@@ -1,4 +1,4 @@
-// Kernels K2 and K9: bilinear backward warp, NHWC, for sm_90a.
+// Kernels K2, K9 and K10: bilinear backward warp, NHWC, for sm_90a.
 //
 // Replaces the TPU tile-slab warp `atmvfi_tpu/ops/warp_pallas.py::
 // flow_warp_tiled` (v3 kernel `_kernel_v3`, and the pair form
@@ -24,6 +24,21 @@
 //
 // The pair form warps two images by two flows in one launch
 // (blockIdx.y selects the image). Later work: vector loads.
+//
+// Kernel K10 (`warp_pair_srcfull_f32`) replaces the TPU's slab-row warp
+// pair of the row-sharded serving schedule, `planar_warp_pair_srcfull`:
+// K2 whose output rows are a slab [row0, row0 + H_out) of a full source
+// of H_src rows. The pixel index decomposes over H_out; the taps are
+// validated against, and addressed in, the H_src-row source. K10 folds
+// row0 into the flow first, y = i + (fy + row0), as the TPU op does
+// (`warp_pallas.py:1423-1426`), so its rows are not bit-equal to the
+// full-frame warp's. The single form `flow_warp_rows_*` (the NHWC
+// feature row warp of `ops/warp.py::flow_warp_rows`) adds row0 to the
+// row index instead, y = (i + row0) + fy, which is bit-equal to the
+// full-frame warp's rows. On the TPU the slab op needs per-tile slab
+// extents, an exactness cond and an XLA fallback because its sources
+// are VMEM slabs; here a thread reads any row of the full source, so
+// none of that exists.
 //
 // Kernel K9 (`warp_blend_f32`) replaces the TPU's fused dual warp +
 // occlusion blend `flow_warp_blend_tiled` (`_kernel_blend`):
@@ -58,23 +73,33 @@ struct Taps {
   float w[4];
 };
 
+// Output rows [row0, row0 + H_out) of a warp whose source has H_src rows
+// (the full-frame warp: H_out = H_src, row0 = 0). fold: add row0 to the
+// flow's y first (K10) instead of to the row index.
+struct Rows {
+  int H_out, H_src, row0, fold;
+};
+
 // Tap indices and weights of output pixel (b, i, j); mirrors the
 // arithmetic of ops/warp.py::_sample_xy operation for operation.
 __device__ __forceinline__ Taps make_taps(const float* __restrict__ flow,
-                                          int64_t p, int H, int W) {
-  const int64_t hw = (int64_t)H * W;
+                                          int64_t p, Rows r, int W) {
+  const int64_t hw = (int64_t)r.H_out * W;
   const int64_t b = p / hw;
-  const int64_t r = p - b * hw;
-  const int i = (int)(r / W);
-  const int j = (int)(r - (int64_t)i * W);
+  const int64_t q = p - b * hw;
+  const int i = (int)(q / W);
+  const int j = (int)(q - (int64_t)i * W);
+  const float fy = flow[2 * p + 1];
   const float x = __fadd_rn((float)j, flow[2 * p]);
-  const float y = __fadd_rn((float)i, flow[2 * p + 1]);
+  const float y = r.fold ? __fadd_rn((float)i, __fadd_rn(fy, (float)r.row0))
+                         : __fadd_rn(__fadd_rn((float)i, (float)r.row0), fy);
   const float x0 = floorf(x);
   const float y0 = floorf(y);
   const float wx1 = __fsub_rn(x, x0);
   const float wy1 = __fsub_rn(y, y0);
   const float wx0 = __fsub_rn(1.0f, wx1);
   const float wy0 = __fsub_rn(1.0f, wy1);
+  const int H = r.H_src;
   // clamp to [-2, W] / [-2, H]: keeps every validity decision and
   // bounds the integer conversion for huge flows
   const int xi = (int)fminf(fmaxf(x0, -2.0f), (float)W);
@@ -86,12 +111,13 @@ __device__ __forceinline__ Taps make_taps(const float* __restrict__ flow,
   t.w[1] = __fmul_rn(wx1, wy0);
   t.w[2] = __fmul_rn(wx0, wy1);
   t.w[3] = __fmul_rn(wx1, wy1);
+  const int64_t src = b * ((int64_t)H * W);
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     const int xx = xi + dxs[k];
     const int yy = yi + dys[k];
     const bool valid = xx >= 0 && xx <= W - 1 && yy >= 0 && yy <= H - 1;
-    t.idx[k] = valid ? b * hw + (int64_t)yy * W + xx : -1;
+    t.idx[k] = valid ? src + (int64_t)yy * W + xx : -1;
   }
   return t;
 }
@@ -119,32 +145,32 @@ struct WarpArgs {
 
 // One thread per output pixel; loops over C (<= 4) channels.
 template <typename T>
-__global__ void warp_narrow_kernel(WarpArgs a, int B, int H, int W, int C,
+__global__ void warp_narrow_kernel(WarpArgs a, int B, Rows r, int W, int C,
                                    int64_t ps) {
   const int s = blockIdx.y;
-  const int64_t n = (int64_t)B * H * W;
+  const int64_t n = (int64_t)B * r.H_out * W;
   const T* img = static_cast<const T*>(a.img[s]);
   T* out = static_cast<T*>(a.out[s]);
   for (int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; p < n;
        p += (int64_t)gridDim.x * blockDim.x) {
-    const Taps t = make_taps(a.flow[s], p, H, W);
+    const Taps t = make_taps(a.flow[s], p, r, W);
     for (int c = 0; c < C; ++c) out[p * C + c] = from_f<T>(tap_sum(img, t, ps, c));
   }
 }
 
 // One thread per (pixel, channel), channel fastest.
 template <typename T>
-__global__ void warp_wide_kernel(WarpArgs a, int B, int H, int W, int C,
+__global__ void warp_wide_kernel(WarpArgs a, int B, Rows r, int W, int C,
                                  int64_t ps) {
   const int s = blockIdx.y;
-  const int64_t n = (int64_t)B * H * W * C;
+  const int64_t n = (int64_t)B * r.H_out * W * C;
   const T* img = static_cast<const T*>(a.img[s]);
   T* out = static_cast<T*>(a.out[s]);
   for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
        e += (int64_t)gridDim.x * blockDim.x) {
     const int64_t p = e / C;
     const int c = (int)(e - p * C);
-    const Taps t = make_taps(a.flow[s], p, H, W);
+    const Taps t = make_taps(a.flow[s], p, r, W);
     out[e] = from_f<T>(tap_sum(img, t, ps, c));
   }
 }
@@ -157,10 +183,11 @@ __global__ void warp_blend_kernel(const float* __restrict__ img0,
                                   float* __restrict__ out, int B, int H,
                                   int W, int C, int64_t ps) {
   const int64_t n = (int64_t)B * H * W;
+  const Rows rows = {H, H, 0, 0};
   for (int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; p < n;
        p += (int64_t)gridDim.x * blockDim.x) {
-    const Taps t0 = make_taps(flow0, p, H, W);
-    const Taps t1 = make_taps(flow1, p, H, W);
+    const Taps t0 = make_taps(flow0, p, rows, W);
+    const Taps t1 = make_taps(flow1, p, rows, W);
     const float o = occ[p];
     const float r = __fsub_rn(1.0f, o);
     for (int c = 0; c < C; ++c)
@@ -177,8 +204,9 @@ int64_t grid_blocks(int64_t work, int threads) {
 template <typename T>
 int launch(const void* img0, const void* img1, const void* flow0,
            const void* flow1, void* out0, void* out1, int n_img, int B,
-           int H, int W, int C, int64_t ps, void* stream) {
-  if (n_img < 1 || n_img > 2 || B < 1 || H < 1 || W < 1 || C < 1)
+           Rows r, int W, int C, int64_t ps, void* stream) {
+  if (n_img < 1 || n_img > 2 || B < 1 || r.H_out < 1 || r.H_src < 1 ||
+      W < 1 || C < 1 || ps < C)
     return (int)cudaErrorInvalidValue;
   WarpArgs a;
   a.img[0] = img0;
@@ -188,13 +216,13 @@ int launch(const void* img0, const void* img1, const void* flow0,
   a.out[0] = out0;
   a.out[1] = out1;
   const int threads = 256;
-  const int64_t work = (int64_t)B * H * W * (C <= 4 ? 1 : C);
+  const int64_t work = (int64_t)B * r.H_out * W * (C <= 4 ? 1 : C);
   dim3 grid((unsigned)grid_blocks(work, threads), (unsigned)n_img);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (C <= 4)
-    warp_narrow_kernel<T><<<grid, threads, 0, st>>>(a, B, H, W, C, ps);
+    warp_narrow_kernel<T><<<grid, threads, 0, st>>>(a, B, r, W, C, ps);
   else
-    warp_wide_kernel<T><<<grid, threads, 0, st>>>(a, B, H, W, C, ps);
+    warp_wide_kernel<T><<<grid, threads, 0, st>>>(a, B, r, W, C, ps);
   return (int)cudaGetLastError();
 }
 
@@ -204,8 +232,8 @@ extern "C" int warp_f32(const void* img0, const void* img1,
                         const void* flow0, const void* flow1, void* out0,
                         void* out1, int n_img, int B, int H, int W, int C,
                         int64_t ps, void* stream) {
-  return launch<float>(img0, img1, flow0, flow1, out0, out1, n_img, B, H, W,
-                       C, ps, stream);
+  return launch<float>(img0, img1, flow0, flow1, out0, out1, n_img, B,
+                       Rows{H, H, 0, 0}, W, C, ps, stream);
 }
 
 extern "C" int warp_bf16(const void* img0, const void* img1,
@@ -213,7 +241,37 @@ extern "C" int warp_bf16(const void* img0, const void* img1,
                          void* out1, int n_img, int B, int H, int W, int C,
                          int64_t ps, void* stream) {
   return launch<__nv_bfloat16>(img0, img1, flow0, flow1, out0, out1, n_img,
-                               B, H, W, C, ps, stream);
+                               B, Rows{H, H, 0, 0}, W, C, ps, stream);
+}
+
+// K10: the pair warp of two full f32 sources [1, H_src, W, C] onto slab
+// rows [row0, row0 + H_out), row0 folded into the flows' y.
+extern "C" int warp_pair_srcfull_f32(const void* img0, const void* img1,
+                                     const void* flow0, const void* flow1,
+                                     void* out0, void* out1, int H_out,
+                                     int H_src, int W, int C, int64_t ps,
+                                     int row0, void* stream) {
+  return launch<float>(img0, img1, flow0, flow1, out0, out1, 2, 1,
+                       Rows{H_out, H_src, row0, 1}, W, C, ps, stream);
+}
+
+// The single row warp: [B, H_src, W, C] sources onto output rows
+// [row0, row0 + H_out), row0 added to the row index.
+extern "C" int flow_warp_rows_f32(const void* img, const void* flow,
+                                  void* out, int B, int H_out, int H_src,
+                                  int W, int C, int64_t ps, int row0,
+                                  void* stream) {
+  return launch<float>(img, img, flow, flow, out, out, 1, B,
+                       Rows{H_out, H_src, row0, 0}, W, C, ps, stream);
+}
+
+extern "C" int flow_warp_rows_bf16(const void* img, const void* flow,
+                                   void* out, int B, int H_out, int H_src,
+                                   int W, int C, int64_t ps, int row0,
+                                   void* stream) {
+  return launch<__nv_bfloat16>(img, img, flow, flow, out, out, 1, B,
+                               Rows{H_out, H_src, row0, 0}, W, C, ps,
+                               stream);
 }
 
 extern "C" int warp_blend_f32(const void* img0, const void* img1,

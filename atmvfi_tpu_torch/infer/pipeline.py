@@ -1,10 +1,14 @@
 """Inference pipeline: padded two-frame interpolation and streaming.
 
-Counterpart of `atmvfi_tpu/infer/pipeline.py::InterpolationPipeline`
-(single device, no ensemble). Frames go to the device once and stay
-there between the steps of a stream and of the 4x / 8x recursion; only
-uint8 frames cross to the host. The default working type is bf16, as
-in the JAX pipeline; `dtype=torch.float32` is the parity mode.
+Counterpart of `atmvfi_tpu/infer/pipeline.py::InterpolationPipeline`,
+with the multiscale global-motion ensemble and multi-device serving over
+a device grid (`parallel.make_mesh`): the row-sharded schedule
+(`parallel.make_spatial_forward`) for a grid with more than one
+'spatial' shard, the batch split (`parallel.make_dp_forward`) for one
+with only 'data' shards. Frames go to the device once and stay there
+between the steps of a stream and of the 4x / 8x recursion; only uint8
+frames cross to the host. The default working type is bf16, as in the
+JAX pipeline; `dtype=torch.float32` is the parity mode.
 """
 from __future__ import annotations
 
@@ -15,6 +19,12 @@ import torch
 
 from atmvfi_tpu_torch.infer.padder import InputPadder
 from atmvfi_tpu_torch.models import ATMVFIConfig, Network, get_config
+from atmvfi_tpu_torch.parallel import (
+    DATA_AXIS,
+    SPATIAL_AXIS,
+    make_dp_forward,
+    make_spatial_forward,
+)
 
 
 def resolve_device(device: Union[str, torch.device]) -> torch.device:
@@ -37,6 +47,13 @@ class InterpolationPipeline:
     applies the serving profile `ATMVFIConfig.fast()`: composed
     full-resolution warps, a small documented deviation from the
     default forward.
+
+    `mesh` (`parallel.make_mesh`; a device may repeat, so n shards can
+    share one card) replaces `device`: frames live on its first device.
+    With more than one 'spatial' shard (`spmd="spatial"`) each pair is
+    split into row slabs (B == 1; `pad_divisor` must be a multiple of 8
+    x the shard count); with 'data' shards only, the batch is split.
+    `spmd="gspmd"` (JAX's automatic partitioner) has no counterpart.
     """
 
     def __init__(self, state_dict: Optional[dict] = None,
@@ -44,10 +61,30 @@ class InterpolationPipeline:
                  dtype: torch.dtype = torch.bfloat16,
                  global_motion: bool = True,
                  ensemble_global_motion: bool = False,
-                 pad_divisor: int = 64, device="cuda", fast: bool = False):
-        if ensemble_global_motion:
-            raise NotImplementedError(
-                "the multiscale global-motion ensemble is not ported yet")
+                 pad_divisor: int = 64, device="cuda", fast: bool = False,
+                 mesh=None, spmd: str = "spatial"):
+        if ensemble_global_motion and not global_motion:
+            raise ValueError("the ensemble estimates global motion: it "
+                             "needs global_motion=True")
+        self._forward = None
+        n_sp = n_dp = 1
+        if mesh is not None:
+            n_sp, n_dp = mesh.shape[SPATIAL_AXIS], mesh.shape[DATA_AXIS]
+            if spmd == "gspmd":
+                raise NotImplementedError(
+                    "spmd='gspmd' (an automatically partitioned forward) "
+                    "is not ported; use spmd='spatial'")
+            if spmd != "spatial":
+                raise ValueError(f"unknown spmd mode {spmd!r}")
+            if n_sp > 1 and n_dp > 1:
+                raise ValueError(f"mesh {mesh.shape}: split either the rows "
+                                 "('spatial') or the batch ('data')")
+            if pad_divisor % (8 * n_sp):
+                raise ValueError(
+                    f"pad_divisor {pad_divisor} must be a multiple of 8 x "
+                    f"the {n_sp} spatial shards, so padded heights split "
+                    "into 8-row units")
+            device = mesh.devices[0][0]
         self.device = resolve_device(device)
         cfg = (get_config(variant) if isinstance(variant, str) else variant)
         self.cfg = cfg.with_dtype(dtype)
@@ -58,13 +95,35 @@ class InterpolationPipeline:
             net.load_state_dict(state_dict, strict=True)
         self.net = net.to(self.device).eval()
         self.global_motion = global_motion
+        self.ensemble = ensemble_global_motion
         self.pad_divisor = pad_divisor
+        self.mesh = mesh
+        if n_sp > 1:
+            self._forward = make_spatial_forward(
+                self.net, mesh, global_motion=global_motion,
+                ensemble_global_motion=ensemble_global_motion)
+        elif n_dp > 1:
+            if ensemble_global_motion:
+                raise NotImplementedError("the batch split runs without "
+                                          "the ensemble")
+            self._forward = make_dp_forward(self.net, mesh, global_motion)
+
+    @property
+    def shard_devices(self) -> List[torch.device]:
+        """The device of each shard (one entry without a mesh)."""
+        if self.mesh is None:
+            return [self.device]
+        axis = SPATIAL_AXIS if self.mesh.shape[SPATIAL_AXIS] > 1 else DATA_AXIS
+        return self.mesh.axis_devices(axis)
 
     @torch.inference_mode()
     def interpolate_device(self, im0: torch.Tensor,
                            im1: torch.Tensor) -> torch.Tensor:
         """Padded NHWC float frames on the device -> middle frame (f32)."""
-        out = self.net(im0, im1, global_motion=self.global_motion)
+        if self._forward is not None:
+            return self._forward(im0, im1)
+        out = self.net(im0, im1, global_motion=self.global_motion,
+                       ensemble_global_motion=self.ensemble)
         return torch.clamp(out["I_t"], 0.0, 1.0).float()
 
     def _upload(self, frame: np.ndarray) -> torch.Tensor:

@@ -18,6 +18,15 @@ and on the `tiled_blend` route I_t of each blend site comes from K9 (the
 warped pair from one K2 pair launch beside it). On the CPU each kernel
 wrapper runs its plain PyTorch version.
 
+The `serving_*` methods cut the same forward for the row-sharded
+serving schedule (`parallel.spatial`): a conv front per slab of rows, an
+attention middle on the gathered token maps, and a tail per slab whose
+scale-0 warps read the full frames through kernel K10
+(`warp_cuda.warp_pair_srcfull`) and whose token and decoder-input warps
+run as row warps (`warp_cuda.flow_warp_rows`). The multiscale
+global-motion ensemble (`multiscale_global_motion_ensemble`) runs no
+kernel of its own: the encoder and global branch at three scales, and K2.
+
 Frames are stacked on the batch axis so the shared towers run once on
 [2B, ...]. Mixed precision as in the JAX package: images, flows,
 occlusion, warps and blends stay f32; the towers run in `cfg.dtype`;
@@ -48,6 +57,8 @@ from atmvfi_tpu_torch.ops.warp_cuda import (
     flow_warp,
     flow_warp_blend,
     flow_warp_pair,
+    flow_warp_rows,
+    warp_pair_srcfull,
 )
 
 # named ranges of the forward in torch.profiler traces (stage breakdown
@@ -211,14 +222,71 @@ class Network(nn.Module):
                                  self.local_motion_mlp, feat)
         return (*_split_head(out), feat, out)
 
-    def estimate_global_motion(self, x, feat_scale_level):
-        """Coarsest encoder feature -> 1/16 flows and occlusion."""
+    def _global_tokens(self, x, feat_scale_level):
+        """Coarsest encoder feature -> fused 1/16 global tokens."""
         feat_ = self.last_feat_extract(x)
-        feat_ = self.global_feature_fusion(
+        return self.global_feature_fusion(
             [feat_scale_level[1], feat_scale_level[2], feat_])
+
+    def _global_motion_from_tokens(self, feat_):
+        """Attention half of the global branch: 1/16 tokens -> flows and
+        occlusion."""
         out, _ = self._motion(self.global_motion_atmformer,
                               self.global_motion_mlp, feat_)
         return _split_head(out)
+
+    def estimate_global_motion(self, x, feat_scale_level):
+        """Coarsest encoder feature -> 1/16 flows and occlusion."""
+        return self._global_motion_from_tokens(
+            self._global_tokens(x, feat_scale_level))
+
+    def _decoder_stage(self, stage, feat):
+        """[PReLU,] Deconv2x, then the conv pair."""
+        return self._conv_pair(*stage[-2:], stage[:-2](feat))
+
+    def _decoder_input(self, enh, out, warp):
+        """[warp(frame-0 features, flow0) || warp(frame-1 features, flow1)
+        || head output]: the decoder input, with `warp(feature, flow)`
+        the full-frame or the row warp."""
+        fd1 = self.cfg.decoder_dims[0]
+        out_f = out.float()
+        return torch.cat([warp(enh[..., :fd1], out_f[..., 0:2].contiguous()),
+                          warp(enh[..., fd1:2 * fd1],
+                               out_f[..., 2:4].contiguous()), out], -1)
+
+    # ---- the multiscale global-motion ensemble -------------------------
+    def _global_alignmentness(self, flow0, flow1, im0, im1):
+        """Mean |warp(im0) - warp(im1)| per pair under 1/16 flows
+        upsampled to the frames' size: [B]."""
+        factor = im0.shape[1] // flow0.shape[1]
+        w0, w1 = flow_warp_pair(im0, im1, ops.upsample_flow(flow0, factor),
+                                ops.upsample_flow(flow1, factor))
+        return (w0 - w1).abs().mean(dim=(1, 2, 3))
+
+    def multiscale_global_motion_ensemble(self, im0, im1, level0=None):
+        """Global flows estimated on the frames at full, 1/2 and 1/4 size;
+        per pair, the flows that align the frames best (the first on a
+        tie). `level0`: the encoder's (coarsest feature, scale features)
+        on the full frames, when the caller has them."""
+        im = torch.cat([im0, im1], 0)
+        f0s, f1s, losses = [], [], []
+        for level in range(3):
+            if level > 0:
+                im = ops.downsample_2x(im)
+            if level > 0 or level0 is None:
+                x, levels = self.shared_feat_extraction(im)
+            else:
+                x, levels = level0
+            f0, f1, _ = self.estimate_global_motion(x, levels)
+            losses.append(self._global_alignmentness(f0, f1, im0, im1))
+            if level > 0:
+                f0 = ops.upsample_flow(f0, 2 ** level)
+                f1 = ops.upsample_flow(f1, 2 ** level)
+            f0s.append(f0)
+            f1s.append(f1)
+        best = torch.stack(losses, 0).argmin(0)  # [B]
+        pick = torch.arange(im0.shape[0], device=best.device)
+        return torch.stack(f0s, 0)[best, pick], torch.stack(f1s, 0)[best, pick]
 
     def residual_refinement(self, feat, im0, I_t_0, im1, I_t_1, I_t, skips):
         # K5 over [decoder feature || five f32 images]: no concat is built
@@ -235,9 +303,6 @@ class Network(nn.Module):
     # ------------------------------------------------------------------
     def forward(self, im0, im1, global_motion: bool = True,
                 ensemble_global_motion: bool = False):
-        if ensemble_global_motion:
-            raise NotImplementedError(
-                "the multiscale global-motion ensemble is not ported yet")
         c = self.cfg
         im0 = im0.float().contiguous()
         im1 = im1.float().contiguous()
@@ -258,14 +323,18 @@ class Network(nn.Module):
 
         if global_motion:
             with span("global_motion"):
-                gf0, gf1, gocc1 = self.estimate_global_motion(
-                    x, feat_scale_level)
-                I_t, I_t_0, I_t_1 = self._warp_blend(
-                    ops.downsample_2x(im0_list[-1]),
-                    ops.downsample_2x(im1_list[-1]), gf0, gf1, gocc1)
-                im0_warped_list.insert(0, I_t_0)
-                im1_warped_list.insert(0, I_t_1)
-                im_t_list.insert(0, I_t)
+                if ensemble_global_motion:
+                    gf0, gf1 = self.multiscale_global_motion_ensemble(
+                        im0, im1, (x, feat_scale_level))
+                else:
+                    gf0, gf1, gocc1 = self.estimate_global_motion(
+                        x, feat_scale_level)
+                    I_t, I_t_0, I_t_1 = self._warp_blend(
+                        ops.downsample_2x(im0_list[-1]),
+                        ops.downsample_2x(im1_list[-1]), gf0, gf1, gocc1)
+                    im0_warped_list.insert(0, I_t_0)
+                    im1_warped_list.insert(0, I_t_1)
+                    im_t_list.insert(0, I_t)
             with span("prealign"):
                 gf0 = ops.upsample_flow(gf0, 2)
                 gf1 = ops.upsample_flow(gf1, 2)
@@ -297,14 +366,11 @@ class Network(nn.Module):
             im0_warped_list.insert(0, I_t_0)
             im1_warped_list.insert(0, I_t_1)
             im_t_list.insert(0, I_t)
-            fd1 = c.decoder_dims[0]
-            feat = torch.cat([flow_warp(feat[..., :fd1], flow0),
-                              flow_warp(feat[..., fd1:2 * fd1], flow1),
-                              out], -1)
+            feat = self._decoder_input(feat, out, flow_warp)
             skips = []
             mo = c.motion_out_dim
             for stage, scale in zip(self.upsample_pyramid, (2, 1, 0)):
-                feat = self._conv_pair(*stage[-2:], stage[:-2](feat))
+                feat = self._decoder_stage(stage, feat)
                 flow0, flow1, occ1 = _split_head(feat[..., -mo:])
                 if scale != 0:
                     skips.append(feat[..., :-mo])
@@ -333,3 +399,179 @@ class Network(nn.Module):
             "occ_mask1": occ1,
             "occ_mask2": 1 - occ1,
         }
+
+    # ------------------------------------------------------------------
+    # row-sharded serving (parallel.spatial; JAX network.py:891-1282).
+    # Deep cut: a conv FRONT per full-resolution slab of rows (encoder,
+    # both fusions), an attention MIDDLE on the gathered 1/8 and 1/16
+    # token maps (the global branch replicated; the local blocks and the
+    # enhancement per 1/8 slab with a halo; the token and decoder-input
+    # warps per shard as row warps), and a TAIL per slab (three decoder
+    # stages, scale-0 warps and blend, refinement). Shallow cut (the
+    # ensemble): a replicated HEAD through decoder stage 1 and the tail
+    # from scale 0. The scale-0 warps read full frames (K10), as flows
+    # are unbounded; the tail is split at the gather of the pre-aligned
+    # frames (`serving_tail_sources`, then `serving_tail`). Serving
+    # only: B == 1, I_t alone.
+    # ------------------------------------------------------------------
+    def serving_front(self, im0_slab, im1_slab, global_motion: bool = True):
+        """Frame slabs [1, Hs, W, 3] x2 -> (fused 1/8 tokens [2, Hs/8,
+        W/8, fused_dim], global 1/16 tokens [2, Hs/16, W/16, global_dim]
+        or None)."""
+        x, fsl = self.shared_feat_extraction(
+            torch.cat([im0_slab.float(), im1_slab.float()], 0))
+        feat = self.cross_scale_feature_fusion(fsl)
+        gtok = self._global_tokens(x, fsl) if global_motion else None
+        return feat, gtok
+
+    def serving_middle(self, feat, gtok, global_motion: bool = True):
+        """The whole middle on the gathered token maps: (decoder input
+        [1, H/8, W/8, 2 * fused + 5], full-resolution global flows or
+        None)."""
+        feat, gf0_full, gf1_full = self.serving_middle_global(
+            feat, gtok, global_motion)
+        enh, out = self.serving_middle_attn(feat)
+        return self.serving_middle_decin(enh, out), gf0_full, gf1_full
+
+    def serving_middle_global(self, feat, gtok, global_motion: bool = True):
+        """Global flows and the token pre-align: (aligned tokens, gf0_full,
+        gf1_full); the tokens unchanged and None without global motion."""
+        if not global_motion:
+            return feat, None, None
+        B = feat.shape[0] // 2
+        gf0, gf1, g0, g1 = self.serving_middle_flows(gtok)
+        feat = torch.cat([flow_warp(feat[:B], gf0),
+                          flow_warp(feat[B:], gf1)], 0)
+        return feat, g0, g1
+
+    def serving_middle_flows(self, gtok, full_res: bool = True):
+        """Global 1/16 tokens -> (1/8 flows gf8_0, gf8_1, full-resolution
+        flows g0, g1); g0, g1 are None unless `full_res`."""
+        gf0, gf1, _ = self._global_motion_from_tokens(gtok)
+        gf0 = ops.upsample_flow(gf0, 2)
+        gf1 = ops.upsample_flow(gf1, 2)
+        g0 = g1 = None
+        if full_res:
+            g0, g1 = gf0, gf1
+            for _ in range(self.cfg.pyramid_level - 1):
+                g0 = ops.upsample_flow(g0, 2)
+                g1 = ops.upsample_flow(g1, 2)
+        return gf0, gf1, g0, g1
+
+    def serving_middle_align_rows(self, feat, gf8_0_rows, gf8_1_rows,
+                                  row0: int):
+        """Token pre-align onto rows [row0, row0 + h) of the full fused
+        tokens [2, H/8, W/8, C], by the 1/8 global flows of those rows;
+        row for row equal to the full-map warp."""
+        B = feat.shape[0] // 2
+        return torch.cat([flow_warp_rows(feat[:B], gf8_0_rows, row0),
+                          flow_warp_rows(feat[B:], gf8_1_rows, row0)], 0)
+
+    def serving_middle_attn(self, feat_slab):
+        """Pre-aligned token slab [2, h, W/8, C] -> (enhanced features [1,
+        h, W/8, 2C], local motion head output [1, h, W/8, 5])."""
+        B = feat_slab.shape[0] // 2
+        _, _, _, feat, out = self.estimate_local_motion(feat_slab)
+        feat = self.shared_feat_enhancement(feat)
+        return torch.cat([feat[:B], feat[B:]], -1), out
+
+    def serving_middle_decin(self, enh, out):
+        """Decoder input from the full enhanced features and head output."""
+        return self._decoder_input(enh, out, flow_warp)
+
+    def serving_middle_decin_rows(self, enh, out_rows, row0: int):
+        """Decoder input on rows [row0, row0 + h): the full enhanced
+        features (warp sources) and the head output of those rows."""
+        return self._decoder_input(
+            enh, out_rows, lambda f, fl: flow_warp_rows(f, fl, row0))
+
+    def serving_head(self, im0, im1, global_motion: bool = True,
+                     ensemble_global_motion: bool = False):
+        """Shallow cut, replicated: full frames -> (scale-1 decoder output
+        [1, H/2, W/2, fd2 + 5], refinement skips [1/4, 1/2], gf0_full,
+        gf1_full or None). The forward without the scale-0 stage and
+        the outputs only training reads (pyramid warps, coarse blends)."""
+        im0 = im0.float().contiguous()
+        im1 = im1.float().contiguous()
+        B = im0.shape[0]
+        x, fsl = self.shared_feat_extraction(torch.cat([im0, im1], 0))
+        feat = self.cross_scale_feature_fusion(fsl)
+        gf0_full = gf1_full = None
+        if global_motion:
+            if ensemble_global_motion:
+                gf0, gf1 = self.multiscale_global_motion_ensemble(
+                    im0, im1, (x, fsl))
+            else:
+                gf0, gf1, _ = self.estimate_global_motion(x, fsl)
+            gf0 = ops.upsample_flow(gf0, 2)
+            gf1 = ops.upsample_flow(gf1, 2)
+            feat = torch.cat([flow_warp(feat[:B], gf0),
+                              flow_warp(feat[B:], gf1)], 0)
+            for _ in range(self.cfg.pyramid_level - 1):
+                gf0 = ops.upsample_flow(gf0, 2)
+                gf1 = ops.upsample_flow(gf1, 2)
+            gf0_full, gf1_full = gf0, gf1
+        _, _, _, feat, out = self.estimate_local_motion(feat)
+        feat = self.shared_feat_enhancement(feat)
+        feat = self._decoder_input(torch.cat([feat[:B], feat[B:]], -1), out,
+                                   flow_warp)
+        skips = []
+        for stage in self.upsample_pyramid[:2]:
+            feat = self._decoder_stage(stage, feat)
+            skips.append(feat[..., :-self.cfg.motion_out_dim])
+        return feat, skips, gf0_full, gf1_full
+
+    def serving_tail_sources(self, im0_full, im1_full, gf0_slab, gf1_slab,
+                             slab_row0: int, h_slab: int,
+                             global_motion: bool = True):
+        """The scale-0 warp sources on the slab rows [slab_row0,
+        slab_row0 + h_slab): the frames pre-aligned by the global flows
+        of those rows (K10 on the full frames [1, H, W, 3]), or the
+        frames' rows themselves without global motion and in compose
+        mode. The caller gathers the shards' rows of these into full
+        frames for `serving_tail`."""
+        if global_motion and not self.cfg.compose_full_res_warps:
+            return warp_pair_srcfull(im0_full, im1_full, gf0_slab, gf1_slab,
+                                     slab_row0)
+        rows = slice(slab_row0, slab_row0 + h_slab)
+        return im0_full[:, rows], im1_full[:, rows]
+
+    def serving_tail(self, feat_slab, skips_slab, p0_full, p1_full,
+                     im0_full, im1_full, gf0_slab, gf1_slab, slab_row0: int,
+                     crop_off: int, h_loc: int, global_motion: bool = True):
+        """Scale-0 tail on a slab: the scale-1 output of the slab rows
+        [1, Hs/2, W/2, fd2 + 5] and its skips, the gathered full warp
+        sources p*_full and frames im*_full [1, H, W, 3], the global
+        flows of the slab rows (None without global motion) -> the
+        shard's I_t rows [1, h_loc, W, 3] (slab rows crop_off onwards).
+        Both scale-0 warps run as one K10 launch on the full sources."""
+        c = self.cfg
+        feat = self._decoder_stage(self.upsample_pyramid[2], feat_slab)
+        flow0, flow1, occ1 = _split_head(feat[..., -c.motion_out_dim:])
+        if global_motion and c.compose_full_res_warps:
+            flow0 = flow0 + gf0_slab
+            flow1 = flow1 + gf1_slab
+        w0, w1 = warp_pair_srcfull(p0_full, p1_full, flow0, flow1, slab_row0)
+        I_t = occ1 * w0 + (1 - occ1) * w1
+        rows = slice(slab_row0, slab_row0 + feat.shape[1])
+        residual = self.residual_refinement(feat, im0_full[:, rows], w0,
+                                            im1_full[:, rows], w1, I_t,
+                                            skips_slab)
+        I_t = torch.clamp(I_t + residual.float(), 0.0, 1.0)
+        return I_t[:, crop_off:crop_off + h_loc]
+
+    def serving_tail_deep(self, dec_in_slab, p0_full, p1_full, im0_full,
+                          im1_full, gf0_slab, gf1_slab, slab_row0: int,
+                          crop_off: int, h_loc: int,
+                          global_motion: bool = True):
+        """Deep tail: the decoder input of the slab rows [1, Hs/8, W/8,
+        2 * fused + 5] -> decoder stages 2 and 1 on the slab, then
+        `serving_tail`."""
+        feat = dec_in_slab
+        skips = []
+        for stage in self.upsample_pyramid[:2]:
+            feat = self._decoder_stage(stage, feat)
+            skips.append(feat[..., :-self.cfg.motion_out_dim])
+        return self.serving_tail(feat, skips, p0_full, p1_full, im0_full,
+                                 im1_full, gf0_slab, gf1_slab, slab_row0,
+                                 crop_off, h_loc, global_motion)

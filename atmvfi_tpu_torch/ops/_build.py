@@ -128,6 +128,16 @@ def _declare(lib) -> None:
         fn.argtypes = [P, ctypes.c_int64, I, I, I, I, I, I, P, I, P, P, P, I,
                        ctypes.c_int64, P]
         fn.restype = I
+        fn = getattr(lib, f"flow_warp_rows_{dt}")
+        # img, flow, out, B, H_out, H_src, W, C, in_pixel_stride, row0,
+        # stream
+        fn.argtypes = [P, P, P, I, I, I, I, I, ctypes.c_int64, I, P]
+        fn.restype = I
+    # img0, img1, flow0, flow1, out0, out1, H_out, H_src, W, C,
+    # in_pixel_stride, row0, stream
+    lib.warp_pair_srcfull_f32.argtypes = [P, P, P, P, P, P, I, I, I, I,
+                                          ctypes.c_int64, I, P]
+    lib.warp_pair_srcfull_f32.restype = I
     # img0, img1, flow0, flow1, occ, out, B, H, W, C, in_pixel_stride,
     # stream
     lib.warp_blend_f32.argtypes = [P, P, P, P, P, P, I, I, I, I,

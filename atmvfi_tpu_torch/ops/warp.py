@@ -10,8 +10,11 @@ taps are summed in f32 in the order (x0,y0), (x1,y0), (x0,y1), (x1,y1)
 and the result is rounded once to the feature's dtype.
 
 This is also the plain version of kernel K2 (`ops.warp_cuda`), which
-computes the same arithmetic in the same order, and `flow_warp_blend`
-the plain version of K9.
+computes the same arithmetic in the same order, `flow_warp_blend` the
+plain version of K9, and `warp_pair_srcfull` / `flow_warp_rows` those of
+the row-offset forms (K10 and the single row warp), which warp a full
+source onto output rows [row0, row0 + h) of the row-sharded serving
+schedule (`parallel.spatial`).
 """
 from __future__ import annotations
 
@@ -73,3 +76,35 @@ def flow_warp_blend(im0: torch.Tensor, im1: torch.Tensor, flow0: torch.Tensor,
     """occ * warp(im0, flow0) + (1 - occ) * warp(im1, flow1): the two
     warps, then the occlusion blend (occ [B, H, W, 1])."""
     return occ * flow_warp(im0, flow0) + (1 - occ) * flow_warp(im1, flow1)
+
+
+def _rows_xy(flow: torch.Tensor, row0: int, fold: bool):
+    """Sample coords of output rows [row0, row0 + h) for flows [B, h, W,
+    2]: x = j + fx; y = i + (fy + row0) when `fold` (K10, as the TPU op
+    folds the row offset into the flow), else y = (i + row0) + fy."""
+    _, h, w, _ = flow.shape
+    dev = flow.device
+    xs = torch.arange(w, dtype=torch.float32, device=dev).view(1, 1, w)
+    ys = torch.arange(h, dtype=torch.float32, device=dev).view(1, h, 1)
+    fy = flow[..., 1].float()
+    off = torch.tensor(float(row0), dtype=torch.float32, device=dev)
+    y = ys + (fy + off) if fold else (ys + off) + fy
+    return xs + flow[..., 0].float(), y
+
+
+def warp_pair_srcfull(im0_full: torch.Tensor, im1_full: torch.Tensor,
+                      flow0: torch.Tensor, flow1: torch.Tensor, row0: int):
+    """Plain K10: full f32 sources [1, H_full, W, C] warped onto output
+    rows [row0, row0 + H_out) by the flows of those rows [1, H_out, W,
+    2]; row0 is folded into the flows' y (`atmvfi_tpu/ops/warp_pallas.py::
+    planar_warp_pair_srcfull`, NHWC). Two [1, H_out, W, C] f32."""
+    return (_sample_xy(im0_full, *_rows_xy(flow0, row0, True)),
+            _sample_xy(im1_full, *_rows_xy(flow1, row0, True)))
+
+
+def flow_warp_rows(feature: torch.Tensor, flow_rows: torch.Tensor,
+                   row0: int) -> torch.Tensor:
+    """Backward-warp the full `feature` [B, H, W, C] onto output rows
+    [row0, row0 + h) by their flows `flow_rows` [B, h, W, 2]: row for
+    row equal to flow_warp(feature, flow)[:, row0:row0 + h]."""
+    return _sample_xy(feature, *_rows_xy(flow_rows, row0, False))

@@ -1,10 +1,15 @@
-"""Kernel K2 and K9 wrappers: bilinear backward warp (`csrc/warp.cu`).
+"""Kernel K2, K9 and K10 wrappers: bilinear backward warp (`csrc/warp.cu`).
 
 `flow_warp` and its pair form `flow_warp_pair` (K2) replace
 `atmvfi_tpu/ops/warp_pallas.py::flow_warp_tiled` (v3), its pair form
 `warp_pair_op` and the other TPU tilings of the same warp (v1, v2,
 nhwc: K11). `flow_warp_blend` (K9) replaces the fused dual warp +
-occlusion blend `flow_warp_blend_tiled`. For CPU tensors each wrapper
+occlusion blend `flow_warp_blend_tiled`. `warp_pair_srcfull` (K10)
+replaces the slab-row warp pair `planar_warp_pair_srcfull` of the
+row-sharded serving schedule, and `flow_warp_rows` is its single form
+on feature maps (`atmvfi_tpu/ops/warp.py::flow_warp_rows`, an XLA gather
+on the TPU): K2's kernel with a row offset, full sources and the
+caller's output rows. For CPU tensors each wrapper
 runs its plain version (`ops.warp`); for CUDA tensors it launches the
 kernel or raises. `<fn>.calls` counts the calls on any device,
 `<fn>.launches` the kernel launches (one per call on the card).
@@ -21,12 +26,16 @@ import torch
 from atmvfi_tpu_torch.ops import _build
 from atmvfi_tpu_torch.ops.warp import flow_warp as flow_warp_plain
 from atmvfi_tpu_torch.ops.warp import flow_warp_blend as flow_warp_blend_plain
+from atmvfi_tpu_torch.ops.warp import flow_warp_rows as flow_warp_rows_plain
+from atmvfi_tpu_torch.ops.warp import warp_pair_srcfull as srcfull_plain
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
-def _check(img: torch.Tensor, flow: torch.Tensor) -> int:
-    """Validate one (image, flow) operand pair; return the pixel stride."""
+def _check(img: torch.Tensor, flow: torch.Tensor, rows: bool = False) -> int:
+    """Validate one (image, flow) operand pair; return the pixel stride.
+    With `rows` the flow may cover fewer rows than the image (a warp
+    onto a band of output rows)."""
     if img.dtype not in _DTYPES:
         raise TypeError(f"warp kernel takes f32/bf16 images, got {img.dtype}")
     if flow.dtype != torch.float32:
@@ -34,7 +43,8 @@ def _check(img: torch.Tensor, flow: torch.Tensor) -> int:
     if img.dim() != 4 or flow.dim() != 4 or flow.shape[-1] != 2:
         raise ValueError(f"bad shapes {tuple(img.shape)} / {tuple(flow.shape)}")
     B, H, W, C = img.shape
-    if tuple(flow.shape[:3]) != (B, H, W):
+    fB, fH, fW = flow.shape[:3]
+    if (fB, fW) != (B, W) or (fH != H and not rows):
         raise ValueError(f"flow {tuple(flow.shape)} does not match image "
                          f"{tuple(img.shape)}")
     if not flow.is_contiguous():
@@ -131,6 +141,77 @@ def flow_warp_blend(im0: torch.Tensor, im1: torch.Tensor, flow0: torch.Tensor,
     return out
 
 
-for _fn in (flow_warp, flow_warp_pair, flow_warp_blend):
+def _check_row0(row0: int, h_out: int) -> int:
+    if isinstance(row0, torch.Tensor) or int(row0) != row0 or row0 < 0:
+        raise TypeError(f"row0 must be a Python int >= 0, got {row0!r}")
+    if h_out < 1:
+        raise ValueError("no output rows")
+    return int(row0)
+
+
+def warp_pair_srcfull(im0_full: torch.Tensor, im1_full: torch.Tensor,
+                      flow0: torch.Tensor, flow1: torch.Tensor, row0: int):
+    """K10: full f32 sources [1, H_full, W, C] warped onto output rows
+    [row0, row0 + H_out) by the flows of those rows [1, H_out, W, 2],
+    row0 folded into the flows' y; two [1, H_out, W, C] f32, one launch."""
+    warp_pair_srcfull.calls += 1
+    row0 = _check_row0(row0, flow0.shape[1])
+    if im0_full.device.type == "cpu":
+        return srcfull_plain(im0_full, im1_full, flow0, flow1, row0)
+    if im0_full.device.type != "cuda":
+        raise ValueError(f"no warp for device {im0_full.device}")
+    if im0_full.dtype != torch.float32 or im1_full.dtype != torch.float32:
+        raise TypeError("K10 takes f32 sources")
+    ps = _check(im0_full, flow0, rows=True)
+    if (im1_full.shape != im0_full.shape or flow1.shape != flow0.shape
+            or _check(im1_full, flow1, rows=True) != ps):
+        raise ValueError("K10 operands must match in shape and pixel stride")
+    if im0_full.shape[0] != 1:
+        raise ValueError("K10 warps one frame pair (B == 1)")
+    _, H_src, W, C = im0_full.shape
+    H_out = flow0.shape[1]
+    outs = [torch.empty((1, H_out, W, C), dtype=torch.float32,
+                        device=im0_full.device) for _ in range(2)]
+    lib = _build.load_library()
+    with torch.cuda.device(im0_full.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.warp_pair_srcfull_f32(
+            im0_full.data_ptr(), im1_full.data_ptr(), flow0.data_ptr(),
+            flow1.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(), H_out,
+            H_src, W, C, ps, row0, stream)
+    _build.check(rc, "K10 warp_pair_srcfull launch")
+    warp_pair_srcfull.launches += 1
+    return outs[0], outs[1]
+
+
+def flow_warp_rows(feature: torch.Tensor, flow_rows: torch.Tensor,
+                   row0: int) -> torch.Tensor:
+    """The full `feature` [B, H, W, C] (f32 / bf16) warped onto output
+    rows [row0, row0 + h) by their flows [B, h, W, 2]: row for row equal
+    to flow_warp(feature, flow)[:, row0:row0 + h]."""
+    flow_warp_rows.calls += 1
+    row0 = _check_row0(row0, flow_rows.shape[1])
+    if feature.device.type == "cpu":
+        return flow_warp_rows_plain(feature, flow_rows, row0)
+    if feature.device.type != "cuda":
+        raise ValueError(f"no warp for device {feature.device}")
+    ps = _check(feature, flow_rows, rows=True)
+    B, H_src, W, C = feature.shape
+    H_out = flow_rows.shape[1]
+    out = torch.empty((B, H_out, W, C), dtype=feature.dtype,
+                      device=feature.device)
+    lib = _build.load_library()
+    fn = getattr(lib, f"flow_warp_rows_{_DTYPES[feature.dtype]}")
+    with torch.cuda.device(feature.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(feature.data_ptr(), flow_rows.data_ptr(), out.data_ptr(), B,
+                H_out, H_src, W, C, ps, row0, stream)
+    _build.check(rc, "flow_warp_rows launch")
+    flow_warp_rows.launches += 1
+    return out
+
+
+for _fn in (flow_warp, flow_warp_pair, flow_warp_blend, warp_pair_srcfull,
+            flow_warp_rows):
     _fn.calls = 0
     _fn.launches = 0

@@ -34,6 +34,24 @@ Phases, one JSON object per line:
      port on the CPU (plain versions) at 256x448: base with global
      motion, lite with and without it, base on the opt-in routes and
      base under the fast profile.
+  7. row-warp kernels: K10 (`warp_pair_srcfull`, the slab-row warp pair
+     of the row-sharded schedule) against its plain version at the slab
+     shapes of 2 and 4 shards at 1080p (full 1088x1920 f32 sources),
+     and the single row warp (`flow_warp_rows`) at the 1/8 token shapes
+     (bf16, [1, 136, 240, 384] sources): max |d|, CUDA-event times, the
+     bound from the bytes the flows reach, the plain version's time and
+     F.grid_sample on the full source as yardstick.
+  8. spatial main path: InterpolationPipeline(mesh=make_mesh((1, n),
+     ["cuda:0"] * n)) for n = 2 and 4 shards on the card (base, bf16,
+     global motion on, 1080p, margin 96), two frames each after a
+     warm-up: ms/frame, every wrapper's launches per frame against the
+     schedule's (K10 2n, row warps 4n, ...), I_t against the monolithic
+     forward on the card (mean |d| <= 1e-3).
+  9. spatial agreement, f32 with TF32 off, base at 640x448, 2 shards
+     (slabs [0, 512) and [128, 640)): spatial on the card against the
+     monolithic forward on the card (max |d| <= 1e-4) and against
+     spatial on the CPU (<= 1e-3); the ensemble forward on the card
+     against the CPU (<= 1e-3).
 Then the {"kernels": [...]} line, the card's name and power limit, and
 the last line {"ok": true, "device": {...}}. With --conv-sites it runs
 only the build and the K3-K6 sites and prints their times as one JSON
@@ -677,6 +695,8 @@ COUNTED = {  # wrapper name -> (module, attribute) of every kernel wrapper
     "conv3x3_multi": ("conv_cuda", "conv3x3_multi"),
     "conv3x3_pair": ("conv_cuda", "conv3x3_pair"),
     "deconv2x": ("deconv_cuda", "deconv2x"),
+    "warp_pair_srcfull": ("warp_cuda", "warp_pair_srcfull"),
+    "flow_warp_rows": ("warp_cuda", "flow_warp_rows"),
 }
 
 
@@ -763,6 +783,241 @@ def phase_agreement(torch):
                                  "> 1e-3")
 
 
+def spatial_per_frame(n: int) -> dict:
+    """Launches per frame of the deep row-sharded schedule with global
+    motion, n shards on one card. Per shard: the front (K5 1, K3 5, K4
+    4), the local blocks, head and enhancement (K1 4, K3 2), 2 token
+    pre-align + 2 decoder-input row warps, the three decoder stages (K6
+    3, K3 6), the scale-0 pre-align and blend (K10 2) and the refinement
+    (K5 1, K4 3, K3 7, K6 3); once on the card, the replicated global
+    branch (K1 2, K3 2)."""
+    return {"atm_block": 4 * n + 2, "conv3x3": 20 * n + 2,
+            "conv3x3_s2": 7 * n, "conv3x3_multi": 2 * n, "deconv2x": 6 * n,
+            "flow_warp_rows": 4 * n, "warp_pair_srcfull": 2 * n}
+
+
+def slab(n: int, i: int, H: int = 1088, margin: int = 96):
+    """(row0, rows) of shard i's slab (parallel/spatial.py slab_geometry)."""
+    h_loc = H // n
+    m = min(margin, (n - 1) * h_loc, (H - h_loc) // 2) // 16 * 16
+    return min(max(i * h_loc - m, 0), H - h_loc - 2 * m), h_loc + 2 * m
+
+
+def rows_reached(torch, flow, row0: int, H_src: int, fold: bool) -> int:
+    """Source rows between the lowest and highest tap row that a row warp
+    of these flows reads (clipped to the source)."""
+    H_out = flow.shape[1]
+    i = torch.arange(H_out, device=flow.device, dtype=torch.float32)
+    fy = flow[0, ..., 1]
+    y = (i[:, None] + (fy + row0)) if fold else ((i[:, None] + row0) + fy)
+    lo = int(torch.floor(y).min().clamp(0, H_src - 1))
+    hi = int((torch.floor(y) + 1).max().clamp(0, H_src - 1))
+    return hi - lo + 1
+
+
+def phase_row_warps(torch):
+    """K10 and the single row warp against their plain versions at the
+    row-sharded schedule's shapes at 1080p (n = 2 and 4)."""
+    import torch.nn.functional as F
+
+    from atmvfi_tpu_torch.ops import warp as warp_plain
+    from atmvfi_tpu_torch.ops import warp_cuda
+
+    results = {"warp_pair_srcfull": [], "flow_warp_rows": []}
+    g = torch.Generator(device="cuda").manual_seed(8)
+    H, W = 1088, 1920
+    ims = [torch.rand(1, H, W, 3, generator=g, device="cuda")
+           for _ in range(2)]
+    nchw = [i.permute(0, 3, 1, 2) for i in ims]
+
+    def norm_grid(flow, row0, H_src, fold):
+        _, h, w, _ = flow.shape
+        ys, xs = torch.meshgrid(torch.arange(h, device="cuda"),
+                                torch.arange(w, device="cuda"), indexing="ij")
+        fy = flow[..., 1]
+        y = ys + (fy + row0) if fold else (ys + row0) + fy
+        return torch.stack([(xs + flow[..., 0]) * (2.0 / (w - 1)) - 1,
+                            y * (2.0 / (H_src - 1)) - 1], -1)
+
+    for n in (2, 4):  # every slab of the schedule, 2 launches each/frame
+        for i in range(n):
+            row0, h = slab(n, i)
+            fl = [edge_flow(torch, g, 1, h, W, 40.0) for _ in range(2)]
+            run = lambda: warp_cuda.warp_pair_srcfull(*ims, *fl, row0)  # noqa
+            plain = lambda: warp_plain.warp_pair_srcfull(*ims, *fl, row0)  # noqa
+            grids = [norm_grid(f, row0, H, True) for f in fl]
+            lib = lambda: [F.grid_sample(x, gr, mode="bilinear",  # noqa
+                                         padding_mode="zeros",
+                                         align_corners=True)
+                           for x, gr in zip(nchw, grids)]
+            outs, refs = run(), plain()
+            torch.cuda.synchronize()
+            err = max((o - r).abs().max().item() for o, r in zip(outs, refs))
+            lib_err = max((l.permute(0, 2, 3, 1) - r).abs().max().item()
+                          for l, r in zip(lib(), refs))
+            ms, plain_ms, lib_ms = (cuda_ms(run, 50), cuda_ms(plain, 10),
+                                    cuda_ms(lib, 50))
+            src_rows = sum(rows_reached(torch, f, row0, H, True) for f in fl)
+            nbytes = (2 * h * W * (3 * 4 + 2 * 4)   # outputs + flows
+                      + src_rows * W * 3 * 4)       # source rows reached
+            b_ms, b_by = bound_ms(nbytes, 2 * h * W * (7 * 3 + 14), "f32")
+            rec = dict(phase="kernel", kernel="K10 warp_pair_srcfull",
+                       shards=n, shard=i, row0=row0, out_rows=h,
+                       source=[1, H, W, 3], dtype="f32", per_forward=2,
+                       max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                       library_ms=lib_ms, library="2 x grid_sample of the "
+                       "full source", library_max_abs_err=lib_err,
+                       bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                       source_rows_reached=src_rows)
+            emit(rec)
+            if not err <= 1e-6:
+                raise AssertionError(f"K10 n={n} shard {i}: max |d| {err} "
+                                     "> 1e-6")
+            results["warp_pair_srcfull"].append(rec)
+    del ims, nchw
+
+    # the row warps of the 1/8 token maps (base: 384 channels per frame;
+    # the decoder-input warps read a channel half of the 768-wide
+    # enhanced features in place): (site, rows, row0, per frame), from
+    # the 4-shard schedule (token slab 112 rows at 0 or 24, decoder-input
+    # slab 58 rows) and the 2-shard one (136 rows at 0; 92 rows)
+    tok = torch.rand(1, 136, 240, 768, generator=g,
+                     device="cuda").to(torch.bfloat16)
+    for site, src, h, row0, per in (
+            ("token pre-align, 4 shards", tok[..., :384].contiguous(), 112,
+             24, 8),
+            ("decoder input, 4 shards", tok[..., :384], 58, 56, 8),
+            ("token pre-align, 2 shards", tok[..., :384].contiguous(), 136,
+             0, 4),
+            ("decoder input, 2 shards", tok[..., 384:], 92, 44, 4)):
+        fl = edge_flow(torch, g, 1, h, 240, 8.0)
+        run = lambda: warp_cuda.flow_warp_rows(src, fl, row0)  # noqa
+        plain = lambda: warp_plain.flow_warp_rows(src, fl, row0)  # noqa
+        src_f = src.float().permute(0, 3, 1, 2)
+        grid = norm_grid(fl, row0, 136, False)
+        lib = lambda: F.grid_sample(src_f, grid, mode="bilinear",  # noqa
+                                    padding_mode="zeros", align_corners=True)
+        out, ref = run(), plain()
+        torch.cuda.synchronize()
+        err = (out.float() - ref.float()).abs().max().item()
+        ms, plain_ms, lib_ms = (cuda_ms(run, 100), cuda_ms(plain, 20),
+                                cuda_ms(lib, 100))
+        nbytes = (h * 240 * (384 * 2 + 2 * 4)
+                  + rows_reached(torch, fl, row0, 136, False) * 240 * 384 * 2)
+        b_ms, b_by = bound_ms(nbytes, h * 240 * (7 * 384 + 14), "f32")
+        rec = dict(phase="kernel", kernel="flow_warp_rows", site=site,
+                   out_rows=h, row0=row0, source=[1, 136, 240, 384],
+                   pixel_stride=src.stride(2), dtype="bf16", per_forward=per,
+                   max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, library="grid_sample of the full "
+                   "source (f32 values)", bound_ms=b_ms, bound_by=b_by,
+                   bytes=nbytes)
+        emit(rec)
+        if not err <= 1e-2:  # K2's bf16 limit; one rounding on both
+            raise AssertionError(f"flow_warp_rows {site}: max |d| {err} "
+                                 "> 1e-2")
+        results["flow_warp_rows"].append(rec)
+    del tok
+    torch.cuda.empty_cache()
+    return results
+
+
+def phase_spatial_main_path(torch, n: int, frames: int = 2):
+    """The row-sharded schedule with n shards on the card through the
+    pipeline; every wrapper's count is set to 0 just before the timed
+    frames and read just after."""
+    import importlib
+
+    from atmvfi_tpu_torch.infer import InterpolationPipeline
+    from atmvfi_tpu_torch.parallel import make_mesh
+
+    counters = {k: getattr(importlib.import_module(
+        f"atmvfi_tpu_torch.ops.{mod}"), attr)
+        for k, (mod, attr) in COUNTED.items()}
+    mesh = make_mesh((1, n), ["cuda:0"] * n)
+    pipe = InterpolationPipeline(None, "base", torch.bfloat16,
+                                 global_motion=True, mesh=mesh)
+    mono = InterpolationPipeline(None, "base", torch.bfloat16,
+                                 global_motion=True, device="cuda")
+    pairs = smooth_frames(torch, frames + 1, 1080, 1920, seed=7)
+    pipe.interpolate(*pairs[0])  # warm-up
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    outs = [pipe.interpolate(f0, f1) for f0, f1 in pairs[1:]]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    per_frame = spatial_per_frame(n)
+    for o in outs:
+        if o.shape != (1080, 1920, 3) or o.dtype.name != "uint8":
+            raise AssertionError(f"bad output {o.shape} {o.dtype}")
+    for k in COUNTED:
+        if launches[k] != per_frame.get(k, 0) * frames:
+            raise AssertionError(f"spatial n={n}: {k}: {launches[k]} "
+                                 f"launches in {frames} frames, expected "
+                                 f"{per_frame.get(k, 0)} each")
+    # I_t of the padded frames against the monolithic forward
+    x0, x1 = (torch.from_numpy(f).cuda().float()[None] / 255.0
+              for f in pairs[1])
+    pad = lambda x: torch.nn.functional.pad(  # noqa: E731
+        x.permute(0, 3, 1, 2), (0, 0, 4, 4), mode="replicate").permute(
+            0, 2, 3, 1)
+    x0, x1 = pad(x0), pad(x1)
+    d = (pipe.interpolate_device(x0, x1)
+         - mono.interpolate_device(x0, x1)).abs()
+    mean, mx = d.mean().item(), d.max().item()
+    emit(dict(phase="spatial_main_path", model="base", dtype="bf16",
+              shards=n, devices=[str(v) for v in pipe.shard_devices],
+              margin=96, slabs=[list(slab(n, i)) for i in range(n)],
+              frames=frames, size=[1080, 1920], padded=[1088, 1920],
+              ms_per_frame=dt * 1e3 / frames,
+              launches_per_frame={k: v / frames for k, v in launches.items()
+                                  if v},
+              I_t_vs_monolithic_mean_abs=mean, I_t_vs_monolithic_max_abs=mx,
+              tolerance_mean=1e-3, gpu=nvidia_smi_line()))
+    if not mean <= 1e-3:
+        raise AssertionError(f"spatial n={n}: I_t mean |d| {mean} against "
+                             "the monolithic forward > 1e-3")
+    del pipe, mono
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_spatial_agreement(torch):
+    """f32, TF32 off, base at 640x448: 2-shard spatial on the card against
+    the monolithic forward on the card and against spatial on the CPU;
+    the ensemble forward on the card against the CPU."""
+    from atmvfi_tpu_torch.models import Network, get_config
+    from atmvfi_tpu_torch.parallel import make_mesh, make_spatial_forward
+
+    H, W = 640, 448
+    f0, f1 = smooth_frames(torch, 1, H, W, seed=9)[0]
+    ims = [torch.from_numpy(f).float()[None] / 255.0 for f in (f0, f1)]
+    net = Network(get_config("base")).eval()  # seed 0, f32
+    with torch.no_grad():
+        cpu = make_spatial_forward(net, make_mesh((1, 2), ["cpu"] * 2))(*ims)
+        cpu_ens = net(*ims, ensemble_global_motion=True)["I_t"]
+        net = net.cuda()
+        g = [i.cuda() for i in ims]
+        gpu = make_spatial_forward(net, make_mesh((1, 2), ["cuda:0"] * 2))(*g)
+        mono = net(*g)["I_t"].clamp(0, 1)
+        gpu_ens = net(*g, ensemble_global_motion=True)["I_t"]
+    for name, a, b, lim in (
+            ("spatial card vs monolithic card", gpu, mono, 1e-4),
+            ("spatial card vs spatial CPU", gpu.cpu(), cpu, 1e-3),
+            ("ensemble card vs CPU", gpu_ens.cpu(), cpu_ens, 1e-3)):
+        if not bool(torch.isfinite(a).all()) or a.shape != (1, H, W, 3):
+            raise AssertionError(f"{name}: bad I_t {tuple(a.shape)}")
+        err = (a - b).abs().max().item()
+        emit(dict(phase="spatial_agreement", check=name, model="base",
+                  dtype="f32", size=[H, W], shards=2, margin=96,
+                  I_t_max_abs_err=err, tolerance=lim))
+        if not err <= lim:
+            raise AssertionError(f"{name}: I_t max |d| {err} > {lim}")
+
+
 def kernel_line(results, launches):
     """One entry per kernel wrapper; times are per launch, averaged over
     the cases of one forward weighted by their launches per forward.
@@ -805,6 +1060,13 @@ def kernel_line(results, launches):
         "conv3x3_pair": ("K12 fused conv3x3 pair",
                          "atmvfi_tpu_torch/csrc/conv_pair.cu",
                          "atmvfi_tpu/ops/conv_pallas.py:1371"),
+        "warp_pair_srcfull": ("K10 slab-row warp pair (full sources, "
+                              "row offset folded into the flow)",
+                              "atmvfi_tpu_torch/csrc/warp.cu",
+                              "atmvfi_tpu/ops/warp_pallas.py:1407"),
+        "flow_warp_rows": ("row warp of feature maps (K10's single form)",
+                           "atmvfi_tpu_torch/csrc/warp.cu",
+                           "atmvfi_tpu/ops/warp.py:137"),
     }
     results = dict(results, k11=results["flow_warp_pair"]
                    + results["flow_warp"])
@@ -878,6 +1140,11 @@ def main() -> int:
             launches[k] = routes[k]
     launches["k11"] = fast["flow_warp_pair"] + fast["flow_warp"]
     phase_agreement(torch)
+    results.update(phase_row_warps(torch))
+    spatial = [phase_spatial_main_path(torch, n) for n in (2, 4)]
+    for k in ("warp_pair_srcfull", "flow_warp_rows"):  # this path's own
+        launches[k] = sum(run[k] for run in spatial)
+    phase_spatial_agreement(torch)
     emit(kernel_line(results, launches))
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

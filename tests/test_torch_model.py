@@ -186,6 +186,6 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         InterpolationPipeline(None, dataclasses.replace(
             get_config("lite"), **NARROW))
-    with pytest.raises(NotImplementedError):
-        InterpolationPipeline(None, "lite", ensemble_global_motion=True,
-                              device="cpu")
+    with pytest.raises(ValueError, match="global_motion"):
+        InterpolationPipeline(None, "lite", global_motion=False,
+                              ensemble_global_motion=True, device="cpu")
