@@ -12,10 +12,10 @@
 // over the batch). Bound: bytes at the base 1080p shapes (local, bf16:
 // 6.4 GFLOP of products against 0.2 GB of q, kv and out, far below the
 // card's operations per byte). The probabilities stay on chip and each
-// q, k, v element is read once per (window, head), but the products run
-// as scalar f32 FMAs on the CUDA cores, which bound the launch; left for
-// later: the products on the tensor cores (the head dims 48, 84, 28 and
-// 44 need padding to 16).
+// q, k, v element is read once per (window, head). bf16 runs on the
+// tensor cores (mma.sync m16n8k16, head dims 48, 84, 28 and 44 padded
+// with zeros to 16 in shared memory, see `mma_attn`); f32 keeps scalar
+// f32 FMAs on the CUDA cores as the parity mode (`attn_kernel`).
 //
 // K1 replaces `fused_atm_block` (`_block_kernel`). On packed windows
 // x [BW, N, C]:
@@ -37,10 +37,11 @@
 //      column of blocks also stores xn for the residual. The swap is
 //      not applied here: launch 2 reads k and v from the partner
 //      window by index, so the swapped tensor never exists.
-//   2. attention + motion moment, one block per (window, head): k and
-//      v of the partner window sit in shared memory (f32, odd row
-//      stride, no bank conflicts); each warp walks query rows, keeps
-//      its scores in registers and reduces with shuffles.
+//   2. attention + motion moment, one block per (window, head), k and
+//      v of the partner window in shared memory: bf16 on the tensor
+//      cores, one warp per 16 query rows (`mma_attn`); f32 with k and v
+//      as f32 (odd row stride), each warp walking query rows with
+//      scalar FMAs (`attn_kernel`).
 //   3. projection GEMM with bias and the residual in its epilogue.
 // A whole global window in bf16 is 144 x 672 x 2 B = 193 KB, more than
 // a block can hold beside q, k and v, which is why the TPU's one-pass
@@ -53,8 +54,7 @@
 // cores through WMMA 16x16x16 fragments; f32 runs on the CUDA cores in
 // true f32 (the JAX kernel computes f32 at HIGHEST precision, so TF32
 // would not be the same function). Left for later: wgmma with TMA-fed
-// shared-memory rings, one persistent launch, flash-style attention on
-// the tensor cores.
+// shared-memory rings, one persistent launch.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
@@ -333,6 +333,7 @@ struct AttnArgs {
   const float* mask;  // [mask_windows, N, N], window w reads w % M; or null
   int mask_windows, BW, N, hd, swap;  // swap: k, v of window (w + BW/2) % BW
   float scale;
+  int width;  // bf16 kernel: bytes per copied piece (set by launch_attn)
 };
 
 template <typename T>
@@ -437,24 +438,438 @@ attn_kernel(const __grid_constant__ AttnArgs a) {
   }
 }
 
+// ---- bf16 attention + motion moment on the tensor cores -------------
+// One block per (window, head), one warp per 16 query rows: N = 64 runs
+// 4 warps, N = 144 runs 9. q, k and v of the (window, head) land in
+// shared memory as bf16 through cp.async (16-, 8- or 4-byte pieces, the
+// widest that the pointers, strides and head dim allow: a head's channel
+// offset is 16-byte aligned at hd 48, 8-byte aligned at 84, 28 and 44);
+// the head dim is padded with zeros to a multiple of 16, the tokens to
+// the warp count times 16. Each warp computes its 16 x N score block
+// with mma.sync m16n8k16 (q fragments by ldmatrix, k as the col-major B
+// operand by ldmatrix), keeps it in registers (N = 144: 18 n8 tiles, 72
+// f32 a thread), takes row max and row sum with quad shuffles and reads
+// mask and rel at its own (q, k) positions (f32 pairs, 8-byte loads from
+// L1 / L2). The exponentials are ex2.approx on FFMA-folded arguments and
+// one reciprocal per row: the softmax, not the products, was what the
+// SM spent its issue slots on (clock64 phase counts on an H100). The
+// f32 probabilities give the motion moments; rounded to bf16 they are
+// the A fragments of P @ V as they lie in the accumulators (no trip
+// through shared memory), and v's B fragments come by ldmatrix.trans.
+// v's copy is a second cp.async group that lands while the scores are
+// computed. The output is staged in the warp's own q rows and written
+// with the same piece width. Key columns past N get -inf before the
+// max; rows past N are computed on zeros and never stored.
+namespace mma_attn {
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mma16816(float* d, const uint32_t* a,
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t* r, const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// Copy one `width`-byte piece (16, 8, 4: cp.async; 2: a plain copy).
+__device__ __forceinline__ void copy_piece(void* dst, const void* src,
+                                           int width) {
+  const unsigned d = smem_u32(dst);
+  if (width == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src));
+  else if (width == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+                 "l"(src));
+  else if (width == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(d),
+                 "l"(src));
+  else
+    *static_cast<uint16_t*>(dst) = *static_cast<const uint16_t*>(src);
+}
+
+// Rows [0, n) of `head` of window w of one operand into shared rows
+// `ld` elements apart. Each thread keeps one piece of a row and steps
+// down the rows (no division in the loop).
+__device__ __forceinline__ void load_rows(bf16* dst, int ld, const View& v,
+                                          int w, int head, int n, int bytes,
+                                          int width) {
+  const int per = bytes / width, pass = blockDim.x / per;
+  if (pass == 0) {  // rows of more pieces than threads
+    for (int e = threadIdx.x; e < n * per; e += blockDim.x) {
+      const int r = e / per, c = (e - r * per) * width;
+      copy_piece(reinterpret_cast<char*>(dst + r * ld) + c,
+                 reinterpret_cast<const char*>(at<bf16>(v, w, head, r)) + c,
+                 width);
+    }
+    return;
+  }
+  const int r0 = threadIdx.x / per, c = (threadIdx.x - r0 * per) * width;
+  if (r0 >= pass) return;
+  char* d = reinterpret_cast<char*>(dst + r0 * ld) + c;
+  const char* s = reinterpret_cast<const char*>(at<bf16>(v, w, head, r0)) + c;
+  for (int r = r0; r < n;
+       r += pass, d += pass * ld * 2, s += pass * v.sn * 2)
+    copy_piece(d, s, width);
+}
+
+// Store rows [0, n) of a warp's staged output (shared rows `ld` apart)
+// to rows [row0, row0 + n) of `head` of window w.
+__device__ __forceinline__ void store_rows(const bf16* src, int ld,
+                                           const View& v, int w, int head,
+                                           int row0, int n, int bytes,
+                                           int width, int lane) {
+  auto put = [&](int r, int c) {
+    const char* s = reinterpret_cast<const char*>(src + r * ld) + c * width;
+    char* d =
+        reinterpret_cast<char*>(at<bf16>(v, w, head, row0 + r)) + c * width;
+    if (width == 16)
+      *reinterpret_cast<uint4*>(d) = *reinterpret_cast<const uint4*>(s);
+    else if (width == 8)
+      *reinterpret_cast<uint2*>(d) = *reinterpret_cast<const uint2*>(s);
+    else if (width == 4)
+      *reinterpret_cast<uint32_t*>(d) = *reinterpret_cast<const uint32_t*>(s);
+    else
+      *reinterpret_cast<uint16_t*>(d) = *reinterpret_cast<const uint16_t*>(s);
+  };
+  const int per = bytes / width;  // pieces of a row
+  if (per <= 32) {
+    const int pass = 32 / per, r0 = lane / per, c = lane - r0 * per;
+    if (r0 < pass)
+      for (int r = r0; r < n; r += pass) put(r, c);
+  } else {
+    for (int e = lane; e < n * per; e += 32) put(e / per, e % per);
+  }
+}
+
+// Zero channels [hd, dp) of rows [0, n) and every channel of rows
+// [n, rows) of `bufs` buffers of `rows` rows each.
+__device__ __forceinline__ void zero_pad(bf16* buf, int bufs, int rows,
+                                         int n, int hd, int dp, int ld) {
+  const bf16 zero = __float2bfloat16_rn(0.0f);
+  const int padc = dp - hd, padr = rows - n;
+  if (padc)
+    for (int e = threadIdx.x; e < bufs * n * padc; e += blockDim.x) {
+      const int r = e / padc, b = r / n;
+      buf[(b * rows + r - b * n) * ld + hd + e - r * padc] = zero;
+    }
+  if (padr)
+    for (int e = threadIdx.x; e < bufs * padr * dp; e += blockDim.x) {
+      const int r = e / dp, b = r / padr;
+      buf[(b * rows + n + r - b * padr) * ld + e - r * dp] = zero;
+    }
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x, -inf -> 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Two neighbouring f32 (the second only if `two`), as one 8-byte load
+// where `pair` says the address allows it.
+__device__ __forceinline__ float2 ld2(const float* p, bool two, bool pair) {
+  if (pair) return __ldg(reinterpret_cast<const float2*>(p));
+  return make_float2(__ldg(p), two ? __ldg(p + 1) : 0.0f);
+}
+
+// Scale, mask and softmax (f32) of a warp's scores for query rows
+// [r0, r0 + 16): element e of tile j is row r0 + g + 8 (e >> 1), key
+// 8j + 2 tig + (e & 1). Leaves the f32 probabilities in s and writes the
+// motion moments from them. FULL: N is a multiple of 16, so no row or
+// key lies past N and every mask / rel pair is one 8-byte load at an
+// offset fixed at compile time from the thread's row pointers.
+template <int KT, bool FULL>
+__device__ __forceinline__ void softmax_motion(float (&s)[2 * KT][4],
+                                               const AttnArgs& a, int w,
+                                               int head, int r0, int lane) {
+  const int N = a.N, kt = (N + 15) >> 4;
+  const int g = lane >> 2, tig = lane & 3;
+  const bool pair = FULL || N % 2 == 0;  // (q N + k) even
+  const int qr[2] = {r0 + g, r0 + g + 8};
+  const float* mrow[2] = {nullptr, nullptr};
+  const float* rrow[2] = {nullptr, nullptr};
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    if (FULL || qr[h] < N) {
+      if (a.mask)
+        mrow[h] = a.mask + ((int64_t)(w % a.mask_windows) * N + qr[h]) * N +
+                  tig * 2;
+      if (a.rel) rrow[h] = a.rel + qr[h] * N + tig * 2;
+    }
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < 2 * KT; ++j) {
+    if (j >= 2 * kt) break;
+    const int k = j * 8 + tig * 2;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v0 = -INFINITY, v1 = -INFINITY;
+      if (FULL || k < N) {
+        float2 m = make_float2(0.0f, 0.0f);
+        if (mrow[h]) m = ld2(mrow[h] + j * 8, FULL || k + 1 < N, pair);
+        v0 = __fadd_rn(__fmul_rn(s[j][2 * h], a.scale), m.x);
+        if (FULL || k + 1 < N)
+          v1 = __fadd_rn(__fmul_rn(s[j][2 * h + 1], a.scale), m.y);
+      }
+      s[j][2 * h] = v0;
+      s[j][2 * h + 1] = v1;
+      mx[h] = fmaxf(mx[h], fmaxf(v0, v1));
+    }
+  }
+  // e^(v - max) = 2^(v log2 e - max log2 e): one FFMA and one ex2.approx
+  // (2 ulp; p is rounded to bf16 for p @ v, motion keeps ~1e-7 relative)
+  const float l2e = 1.4426950408889634f;
+  float mb[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+    mb[h] = mx[h] * l2e;
+  }
+#pragma unroll
+  for (int j = 0; j < 2 * KT; ++j) {
+    if (j >= 2 * kt) break;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s[j][e] = ex2(fmaf(s[j][e], l2e, -mb[e >> 1]));
+      sum[e >> 1] += s[j][e];
+    }
+  }
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+    inv[h] = 1.0f / sum[h];
+  }
+  float mo[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+#pragma unroll
+  for (int j = 0; j < 2 * KT; ++j) {
+    if (j >= 2 * kt) break;
+    const int k = j * 8 + tig * 2;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float p0 = s[j][2 * h] * inv[h], p1 = s[j][2 * h + 1] * inv[h];
+      s[j][2 * h] = p0;
+      s[j][2 * h + 1] = p1;
+      if (rrow[h] && (FULL || k < N)) {
+        const float2 rx = ld2(rrow[h] + j * 8, FULL || k + 1 < N, pair);
+        const float2 ry = ld2(rrow[h] + N * N + j * 8, FULL || k + 1 < N, pair);
+        mo[h][0] = fmaf(p1, rx.y, fmaf(p0, rx.x, mo[h][0]));
+        mo[h][1] = fmaf(p1, ry.y, fmaf(p0, ry.x, mo[h][1]));
+      }
+    }
+  }
+  if (a.rel) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        mo[h][c] += __shfl_xor_sync(0xffffffffu, mo[h][c], 1);
+        mo[h][c] += __shfl_xor_sync(0xffffffffu, mo[h][c], 2);
+      }
+    if (tig == 0)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (FULL || qr[h] < N) {
+          bf16* m = at<bf16>(a.motion, w, head, qr[h]);
+          m[0] = __float2bfloat16_rn(mo[h][0]);
+          m[1] = __float2bfloat16_rn(mo[h][1]);
+        }
+  }
+}
+
+template <int KT, int DT>  // most 16-token tiles, 16-channel head tiles
+__global__ void __launch_bounds__(KT * 32)
+attn_mma_kernel(const __grid_constant__ AttnArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_attn[];
+  const int head = blockIdx.x, w = blockIdx.y;
+  const int N = a.N, hd = a.hd;
+  const int kt = (N + 15) >> 4, dt = (hd + 15) >> 4;
+  const int np = kt * 16, dp = dt * 16, ld = dp + 8;  // ld*2: odd x 16 B
+  bf16* Qs = reinterpret_cast<bf16*>(smem_attn);  // [np][ld] each
+  bf16* Ks = Qs + np * ld;
+  bf16* Vs = Ks + np * ld;
+  const int kw = a.swap ? (w + a.BW / 2) % a.BW : w;  // kv source window
+  load_rows(Qs, ld, a.q, w, head, N, 2 * hd, a.width);
+  load_rows(Ks, ld, a.k, kw, head, N, 2 * hd, a.width);
+  cp_async_commit();
+  load_rows(Vs, ld, a.v, kw, head, N, 2 * hd, a.width);
+  cp_async_commit();
+  zero_pad(Qs, 3, np, N, hd, dp, ld);
+  cp_async_wait<1>();  // q and k
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3, r0 = warp * 16;
+  bf16* Qw = Qs + r0 * ld;
+  float s[2 * KT][4];
+#pragma unroll
+  for (int j = 0; j < 2 * KT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < DT; ++kk) {
+    if (kk >= dt) break;
+    uint32_t qa[4];
+    ldsm_x4(qa, Qw + (lane & 15) * ld + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+    for (int j = 0; j < KT; ++j) {
+      if (j >= kt) break;
+      uint32_t kb[4];
+      ldsm_x4(kb, Ks + (j * 16 + (lane >> 4) * 8 + (lane & 7)) * ld +
+                      kk * 16 + ((lane >> 3) & 1) * 8);
+      mma16816(s[2 * j], qa, kb[0], kb[1]);
+      mma16816(s[2 * j + 1], qa, kb[2], kb[3]);
+    }
+  }
+  if (N == np)
+    softmax_motion<KT, true>(s, a, w, head, r0, lane);
+  else
+    softmax_motion<KT, false>(s, a, w, head, r0, lane);
+
+  // p rounded to bf16: the accumulators of tiles 2kk, 2kk+1 are the A
+  // fragment of keys [16kk, 16kk + 16)
+  uint32_t pa[KT][4];
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) {
+    if (kk >= kt) break;
+    pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+    pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+    pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+  }
+  cp_async_wait<0>();  // v
+  __syncthreads();
+  float o[2 * DT][4];
+#pragma unroll
+  for (int j = 0; j < 2 * DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.0f;
+#pragma unroll
+  for (int kk = 0; kk < KT; ++kk) {
+    if (kk >= kt) break;
+#pragma unroll
+    for (int nt = 0; nt < DT; ++nt) {
+      if (nt >= dt) break;
+      uint32_t vb[4];
+      ldsm_x4_t(vb, Vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld +
+                        nt * 16 + (lane >> 4) * 8);
+      mma16816(o[2 * nt], pa[kk], vb[0], vb[1]);
+      mma16816(o[2 * nt + 1], pa[kk], vb[2], vb[3]);
+    }
+  }
+  // stage the rounded rows in this warp's q rows, then write them out
+#pragma unroll
+  for (int j = 0; j < 2 * DT; ++j) {
+    if (j >= 2 * dt) break;
+    const int c = j * 8 + tig * 2;
+    *reinterpret_cast<__nv_bfloat162*>(Qw + g * ld + c) =
+        __floats2bfloat162_rn(o[j][0], o[j][1]);
+    *reinterpret_cast<__nv_bfloat162*>(Qw + (g + 8) * ld + c) =
+        __floats2bfloat162_rn(o[j][2], o[j][3]);
+  }
+  __syncwarp();
+  store_rows(Qw, ld, a.out, w, head, r0, min(16, N - r0), 2 * hd, a.width,
+             lane);
+}
+
+template <int KT, int DT>
+cudaError_t launch(const AttnArgs& a, int heads, cudaStream_t st) {
+  const int kt = (a.N + 15) / 16, ld = (a.hd + 15) / 16 * 16 + 8;
+  const int smem = 3 * kt * 16 * ld * 2;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attn_mma_kernel<KT, DT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        smem);
+    if (err != cudaSuccess) return err;
+  }
+  attn_mma_kernel<KT, DT><<<dim3(heads, a.BW), kt * 32, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
+template <int KT>
+cudaError_t launch_dt(const AttnArgs& a, int heads, cudaStream_t st) {
+  if (a.hd <= 32) return launch<KT, 2>(a, heads, st);
+  if (a.hd <= 48) return launch<KT, 3>(a, heads, st);
+  if (a.hd <= 96) return launch<KT, 6>(a, heads, st);
+  return launch<KT, 8>(a, heads, st);
+}
+
+// Widest piece (16, 8, 4 or 2 bytes) that every row of q, k, v and out
+// starts on and that divides a head's row.
+inline int piece_width(const AttnArgs& a) {
+  const View* views[4] = {&a.q, &a.k, &a.v, &a.out};
+  int w = 16;
+  for (; w > 2; w /= 2) {
+    bool ok = (2 * a.hd) % w == 0;
+    for (const View* v : views)
+      ok = ok && reinterpret_cast<uintptr_t>(v->ptr) % w == 0 &&
+           (2 * v->sw) % w == 0 && (2 * v->sh) % w == 0 &&
+           (2 * v->sn) % w == 0;
+    if (ok) break;
+  }
+  return w;
+}
+
+}  // namespace mma_attn
+
+// The window-attention launch: bf16 on the tensor cores
+// (mma_attn::attn_mma_kernel), f32 as true f32 on the CUDA cores
+// (attn_kernel, the parity mode: JAX computes f32 at HIGHEST precision,
+// so TF32 products would not be the same function).
 template <typename T>
-cudaError_t launch_attn(const AttnArgs& a, int heads, cudaStream_t st) {
+cudaError_t launch_attn(AttnArgs a, int heads, cudaStream_t st) {
   if (a.BW < 1 || a.N < 1 || a.N > 32 * MAX_KEYS || heads < 1 || a.hd < 1 ||
       a.hd > 32 * MAX_DIMS || (a.swap && a.BW % 2) ||
       (a.mask && (a.mask_windows < 1 || a.BW % a.mask_windows)) ||
       (a.rel && !a.motion.ptr))
     return cudaErrorInvalidValue;
-  const int hdp = a.hd | 1;
-  const size_t smem = sizeof(float) * (2 * (size_t)a.N * hdp +
-                                       ATT_WARPS * (size_t)(hdp + a.N));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
+  if constexpr (sizeof(T) == 2) {
+    a.width = mma_attn::piece_width(a);
+    if (a.N <= 64) return mma_attn::launch_dt<4>(a, heads, st);
+    if (a.N <= 144) return mma_attn::launch_dt<9>(a, heads, st);
+    return mma_attn::launch_dt<10>(a, heads, st);
+  } else {
+    const int hdp = a.hd | 1;
+    const size_t smem = sizeof(float) * (2 * (size_t)a.N * hdp +
+                                         ATT_WARPS * (size_t)(hdp + a.N));
+    if (smem > 48 * 1024) {
+      const cudaError_t err = cudaFuncSetAttribute(
+          attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)smem);
+      if (err != cudaSuccess) return err;
+    }
+    attn_kernel<T><<<dim3(heads, a.BW), ATT_WARPS * 32, smem, st>>>(a);
+    return cudaGetLastError();
   }
-  attn_kernel<T><<<dim3(heads, a.BW), ATT_WARPS * 32, smem, st>>>(a);
-  return cudaGetLastError();
 }
 
 template <typename T, int MODE>

@@ -13,8 +13,11 @@
   same on head-major q, k, v [BW, h, N, d], through K7's kernel. Plain
   version `ops.attention.window_attention_heads`.
 
-For CPU tensors each wrapper runs its plain version; for CUDA tensors
-it launches the kernel or raises. `<fn>.calls` counts the calls on any
+The attention launch (K7, K8 and K1's second launch) runs bf16 on the
+tensor cores (`attn_mma_kernel`: mma.sync, head dims padded to 16 in
+shared memory) and f32 as true f32 on the CUDA cores (`attn_kernel`,
+the parity mode). For CPU tensors each wrapper runs its plain version;
+for CUDA tensors it launches the kernel or raises. `<fn>.calls` counts the calls on any
 device, `<fn>.launches` the calls that launched the kernel.
 
 Weights are cast to x's dtype (f32 or bf16), the LayerNorm parameters,

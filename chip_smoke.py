@@ -3,6 +3,7 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --conv-sites   # the build and phase 3 alone
+    python3 chip_smoke.py --route-kernels   # the build and phase 4 alone
 
 Phases, one JSON object per line:
   1. device: the card (nvidia-smi name and power limit), torch and CUDA
@@ -17,8 +18,10 @@ Phases, one JSON object per line:
      for the warp; for the conv kernels K3-K6 the cuDNN conv + bias +
      F.prelu that they replace), at every distinct conv site.
   4. route kernels: K7 / K8 (window attention + motion, packed and
-     head-major) at the three window shapes, K9 (fused warp + blend) at
-     the five blend sites and K12 (fused conv pair) at its four sites,
+     head-major; the launch K1 runs too) at the three base window shapes
+     and at the lite local and global ones (head dims 28 and 44), f32
+     and bf16, K9 (fused warp + blend) at the five blend sites and K12
+     (fused conv pair) at its four sites,
      against their plain versions, with CUDA-event times, bounds, the
      plain version's time and yardsticks (scaled_dot_product_attention,
      out only; grid_sample pair + blend and the K2 pair + blend; the two
@@ -55,9 +58,10 @@ Phases, one JSON object per line:
 Then the {"kernels": [...]} line, the card's name and power limit, and
 the last line {"ok": true, "device": {...}}. With --conv-sites it runs
 only the build and the K3-K6 sites and prints their times as one JSON
-line (to compare two checkouts in one call). Any failed phase raises
-and the script exits non-zero; without a CUDA device, or without the
-repo beside it, it exits non-zero before printing any result.
+line (to compare two checkouts in one call); with --route-kernels only
+the build and phase 4. Any failed phase raises and the script exits
+non-zero; without a CUDA device, or without the repo beside it, it
+exits non-zero before printing any result.
 """
 import json
 import os
@@ -461,10 +465,15 @@ def phase_conv_kernels(torch):
     return results
 
 
-# window shapes of the attention sites at base 1080p: (site, tokens
-# h x w of one frame, window, shift); the two frames' windows are stacked
-ATTN_SITES = [("local", 136, 240, 8, 4, True), ("global", 68, 120, 12, 6, True),
-              ("enhance", 136, 240, 8, 0, False)]
+# window shapes of the attention sites at 1080p: (site, tokens h x w of
+# one frame, window, shift, motion, channels C of 8 heads); the two
+# frames' windows are stacked. Base: head dims 48 and 84; lite: 28 and
+# 44, which the bf16 kernel pads to 32 and 48.
+ATTN_SITES = [("local", 136, 240, 8, 4, True, 384),
+              ("global", 68, 120, 12, 6, True, 672),
+              ("enhance", 136, 240, 8, 0, False, 384),
+              ("lite local", 136, 240, 8, 4, True, 224),
+              ("lite global", 68, 120, 12, 6, True, 352)]
 # K9 blend sites (1/16 ... full resolution) and K12 sites: (site, H, W,
 # Cin, Cmid, Cout, PReLU after conv_b)
 BLEND_SITES = [(1088 >> k, 1920 >> k) for k in (4, 3, 2, 1, 0)]
@@ -491,8 +500,7 @@ def phase_route_kernels(torch):
     g = torch.Generator(device="cuda").manual_seed(6)
     tol = {torch.float32: ("max", 1e-4), torch.bfloat16: ("mean", 5e-3)}
     heads = 8
-    for site, h, w, ws, ss, motion in ATTN_SITES:
-        C = 672 if site == "global" else 384
+    for site, h, w, ws, ss, motion, C in ATTN_SITES:
         hd = C // heads
         mask = ops.attn_mask_for(h, w, ws, ss, "cuda")
         rel = ops.relative_coords(ws, "cuda") if motion else None
@@ -543,8 +551,10 @@ def phase_route_kernels(torch):
                            mask=mask is not None, motion=motion,
                            max_abs_err=do.max().item(),
                            mean_abs_err=do.mean().item(),
-                           motion_max_abs_err=dm.max().item(), ms=ms,
+                           motion_max_abs_err=dm.max().item(),
+                           motion_mean_abs_err=dm.mean().item(), ms=ms,
                            plain_ms=plain_ms, library_ms=lib_ms,
+                           ms_over_library=ms / lib_ms,
                            library="scaled_dot_product_attention, out only",
                            bound_ms=b_ms, bound_by=b_by, flops=flops,
                            bytes=nbytes)
@@ -651,7 +661,8 @@ def phase_route_kernels(torch):
                    bf16_mean_abs_err=h_mean, bf16_max_abs_err=h_max,
                    max_abs_err=max(f_max, h_max), ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, library="cuDNN conv + bias + F.prelu, "
-                   "twice", two_k3_ms=k3_ms, bound_ms=b_ms, bound_by=b_by,
+                   "twice", two_k3_ms=k3_ms, ms_over_library=ms / lib_ms,
+                   ms_over_two_k3=ms / k3_ms, bound_ms=b_ms, bound_by=b_by,
                    flops=flops, bytes=nbytes)
         emit(rec)
         if not (f_max <= 1e-4 and h_mean <= 1e-3):
@@ -1044,11 +1055,13 @@ def kernel_line(results, launches):
         "deconv2x": ("K6 deconv2x + bias + PReLU",
                      "atmvfi_tpu_torch/csrc/deconv2x.cu",
                      "atmvfi_tpu/ops/deconv_pallas.py:102"),
-        "window_attention": ("K7 window attention + motion, packed",
+        "window_attention": ("K7 window attention + motion, packed "
+                             "(bf16: tensor-core attn_mma_kernel; f32: "
+                             "scalar attn_kernel)",
                              "atmvfi_tpu_torch/csrc/atm_block.cu",
                              "atmvfi_tpu/ops/attention_pallas.py:233"),
         "window_attention_heads": ("K8 window attention + motion, "
-                                   "head-major (K7's kernel)",
+                                   "head-major (K7's kernels)",
                                    "atmvfi_tpu_torch/csrc/atm_block.cu",
                                    "atmvfi_tpu/ops/attention_pallas.py:119"),
         "flow_warp_blend": ("K9 fused dual warp + occlusion blend",
@@ -1057,7 +1070,8 @@ def kernel_line(results, launches):
         "k11": ("K11 warp routes (tiled v1 / v2 / nhwc, unchecked), "
                 "served by K2", "atmvfi_tpu_torch/csrc/warp.cu",
                 "atmvfi_tpu/ops/warp_pallas.py:42"),
-        "conv3x3_pair": ("K12 fused conv3x3 pair",
+        "conv3x3_pair": ("K12 fused conv3x3 pair (cp.async ring, "
+                         "one 192-row stage A pass per Cmid block)",
                          "atmvfi_tpu_torch/csrc/conv_pair.cu",
                          "atmvfi_tpu/ops/conv_pallas.py:1371"),
         "warp_pair_srcfull": ("K10 slab-row warp pair (full sources, "
@@ -1073,24 +1087,37 @@ def kernel_line(results, launches):
     out = []
     for k, (name, src, rep) in meta.items():
         recs = results[k]
+        base = [r for r in recs if r.get("dtype") == "bf16"
+                and not r.get("case", "").startswith("lite")]
         if k in ("atm_block", "window_attention"):
-            # the main paths run bf16, 2 calls per window shape
-            used = [(r, 2) for r in recs if r["dtype"] == "bf16"]
+            # the main paths run base bf16, 2 calls per window shape
+            used = [(r, 2) for r in base]
         elif k == "window_attention_heads":  # on no main path
-            used = [(r, 1) for r in recs if r["dtype"] == "bf16"]
+            used = [(r, 1) for r in base]
         else:
             used = [(r, r["per_forward"]) for r in recs if r["per_forward"]]
         n = sum(w for _, w in used)
         avg = lambda key: sum(r[key] * w for r, w in used) / n  # noqa: E731
         lib = (avg("library_ms") if all("library_ms" in r for r, _ in used)
                else None)
-        out.append(dict(
+        entry = dict(
             name=name, route="cuda", source=src, replaces=rep,
             launches=launches[k],
             max_abs_err=max(r["max_abs_err"] for r in recs),
             ms=avg("ms"), plain_ms=avg("plain_ms"), bound_ms=avg("bound_ms"),
             bound_by=max(used, key=lambda rw: rw[0]["bound_ms"])[0]["bound_by"],
-            library_ms=lib))
+            library_ms=lib)
+        if k in ("window_attention", "window_attention_heads"):
+            entry["bf16_max_abs_err"] = max(r["max_abs_err"] for r in recs
+                                            if r["dtype"] == "bf16")
+        if k == "conv3x3_pair":
+            entry["bf16_max_abs_err"] = max(r["bf16_max_abs_err"]
+                                            for r in recs)
+            entry["ms_over_two_k3"] = entry["ms"] / avg("two_k3_ms")
+        if k in ("window_attention", "window_attention_heads",
+                 "conv3x3_pair"):
+            entry["ms_over_library"] = entry["ms"] / lib
+        out.append(entry)
     return {"kernels": out}
 
 
@@ -1121,6 +1148,10 @@ def main() -> int:
               ptxas=[ln.strip() for ln in _build.ptxas_log.splitlines()
                      if "registers" in ln or "spill" in ln
                      or "Compiling entry" in ln][:80]))
+    if sys.argv[1:] == ["--route-kernels"]:
+        phase_route_kernels(torch)
+        emit(dict(route_kernels="done", gpu=nvidia_smi_line()))
+        return 0
     if sys.argv[1:] == ["--conv-sites"]:
         sites = {r["site"] + f" ({k})": r["ms"]
                  for k, recs in phase_conv_kernels(torch).items()
