@@ -9,21 +9,38 @@
 //
 // On the TPU the gather had to be rebuilt from slab DMAs, lane gathers
 // and an exactness fallback. A GPU thread reads any address, so there
-// is no slab, no fallback and no unchecked flavour: one thread per
-// output pixel for C <= 4 (the images), one thread per (pixel,
-// channel) with the channel fastest for wide feature maps, so the four
-// tap reads of a warp coalesce along the channels.
+// is no slab, no fallback and no unchecked flavour.
 //
-// Bound: bytes. Each output value needs its four taps (mostly L1/L2
-// hits for smooth flows), the flow and one write; the arithmetic is a
-// few dozen flops per pixel, far below the card's ratio. Taps and
-// weights are f32 and summed in the plain version's order with
+// Taps and weights are f32 and summed in the plain version's order with
 // explicitly rounded operations (no FMA contraction), so an f32 result
 // is bit-equal to `ops/warp.py::flow_warp` on the same card; bf16
 // features are accumulated in f32 and rounded once.
 //
 // The pair form warps two images by two flows in one launch
-// (blockIdx.y selects the image). Later work: vector loads.
+// (blockIdx.y selects the image).
+//
+// Bound: bytes (the taps mostly hit L1/L2; each output is written
+// once). The first form (one thread per (pixel, channel)) redid the
+// pixel's tap arithmetic -- a flow load, a 64-bit division, four bounds
+// checks and four weights -- for every channel and made only 2-byte
+// loads: 11x its byte bound at 384 bf16 channels, slower than
+// `grid_sample`. Now:
+//  * wide form (C > 4, the 1/8 feature maps): a block takes a group of
+//    pixels; one thread per pixel computes its taps (source offsets and
+//    weights) once into shared memory, then the threads covering the
+//    pixel's channels read them back. A thread covers one 16-byte chunk
+//    (8 bf16 or 4 f32 channels) per tap row and writes one 16-byte
+//    chunk. The chunk width follows the pixel stride and the pointers'
+//    alignment; a ragged C or an unaligned slice takes 1-channel chunks.
+//    The thread -> (pixel, chunk) split is computed once per thread,
+//    outside the pixel loop: no division per element.
+//  * narrow form (C <= 4, the f32 image pyramid): each thread takes 4
+//    pixels on maps of at least 132 such blocks (their flows read as
+//    float2, all loads issued before the sums; 1 pixel on smaller maps,
+//    so that every SM gets work), and the block's output goes through
+//    shared memory so that it is written as contiguous 16-byte pieces.
+// Every channel keeps the plain version's rounded operations in its
+// order, so f32 stays bit-equal.
 //
 // Kernel K10 (`warp_pair_srcfull_f32`) replaces the TPU's slab-row warp
 // pair of the row-sharded serving schedule, `planar_warp_pair_srcfull`:
@@ -69,7 +86,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f(float v) {
 }
 
 struct Taps {
-  int64_t idx[4];  // source pixel index per tap, -1 when invalid
+  int64_t off[4];  // element offset of the tap's pixel, -1 when invalid
   float w[4];
 };
 
@@ -80,19 +97,19 @@ struct Rows {
   int H_out, H_src, row0, fold;
 };
 
-// Tap indices and weights of output pixel (b, i, j); mirrors the
-// arithmetic of ops/warp.py::_sample_xy operation for operation.
-__device__ __forceinline__ Taps make_taps(const float* __restrict__ flow,
-                                          int64_t p, Rows r, int W) {
-  const int64_t hw = (int64_t)r.H_out * W;
-  const int64_t b = p / hw;
-  const int64_t q = p - b * hw;
-  const int i = (int)(q / W);
-  const int j = (int)(q - (int64_t)i * W);
-  const float fy = flow[2 * p + 1];
-  const float x = __fadd_rn((float)j, flow[2 * p]);
-  const float y = r.fold ? __fadd_rn((float)i, __fadd_rn(fy, (float)r.row0))
-                         : __fadd_rn(__fadd_rn((float)i, (float)r.row0), fy);
+// Tap offsets (pixel index * pixel stride) and weights of output pixel
+// p = (b, i, j) with flow (fx, fy); mirrors the arithmetic of
+// ops/warp.py::_sample_xy operation for operation.
+__device__ __forceinline__ Taps make_taps(float2 f, int p, Rows r, int W,
+                                          int64_t ps) {
+  const int hw = r.H_out * W;
+  const int b = p / hw;
+  const int q = p - b * hw;
+  const int i = q / W;
+  const int j = q - i * W;
+  const float x = __fadd_rn((float)j, f.x);
+  const float y = r.fold ? __fadd_rn((float)i, __fadd_rn(f.y, (float)r.row0))
+                         : __fadd_rn(__fadd_rn((float)i, (float)r.row0), f.y);
   const float x0 = floorf(x);
   const float y0 = floorf(y);
   const float wx1 = __fsub_rn(x, x0);
@@ -105,32 +122,33 @@ __device__ __forceinline__ Taps make_taps(const float* __restrict__ flow,
   const int xi = (int)fminf(fmaxf(x0, -2.0f), (float)W);
   const int yi = (int)fminf(fmaxf(y0, -2.0f), (float)H);
   Taps t;
-  const int dxs[4] = {0, 1, 0, 1};
-  const int dys[4] = {0, 0, 1, 1};
   t.w[0] = __fmul_rn(wx0, wy0);
   t.w[1] = __fmul_rn(wx1, wy0);
   t.w[2] = __fmul_rn(wx0, wy1);
   t.w[3] = __fmul_rn(wx1, wy1);
-  const int64_t src = b * ((int64_t)H * W);
+  const int64_t src = (int64_t)b * H * W;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
-    const int xx = xi + dxs[k];
-    const int yy = yi + dys[k];
+    const int xx = xi + (k & 1);
+    const int yy = yi + (k >> 1);
     const bool valid = xx >= 0 && xx <= W - 1 && yy >= 0 && yy <= H - 1;
-    t.idx[k] = valid ? src + (int64_t)yy * W + xx : -1;
+    t.off[k] = valid ? (src + (int64_t)yy * W + xx) * ps : -1;
   }
   return t;
 }
 
+__device__ __forceinline__ float2 load_flow(const float* flow, int p) {
+  return reinterpret_cast<const float2*>(flow)[p];
+}
+
 template <typename T>
 __device__ __forceinline__ float tap_sum(const T* __restrict__ img,
-                                         const Taps& t, int64_t ps,
-                                         int c) {
+                                         const Taps& t, int c) {
   float acc = 0.0f;
 #pragma unroll
   for (int k = 0; k < 4; ++k) {
     // an invalid tap contributes 0 * w = +0, like the plain version
-    const float v = t.idx[k] >= 0 ? to_f(img[t.idx[k] * ps + c]) : 0.0f;
+    const float v = t.off[k] >= 0 ? to_f(img[t.off[k] + c]) : 0.0f;
     const float term = __fmul_rn(v, t.w[k]);
     acc = k == 0 ? term : __fadd_rn(acc, term);
   }
@@ -143,35 +161,124 @@ struct WarpArgs {
   void* out[2];
 };
 
-// One thread per output pixel; loops over C (<= 4) channels.
-template <typename T>
-__global__ void warp_narrow_kernel(WarpArgs a, int B, Rows r, int W, int C,
-                                   int64_t ps) {
+// Narrow form (C <= 4): PPT pixels a thread (4 on maps large enough to
+// fill the card with such blocks, else 1), the block's pixels staged in
+// shared memory and written out as contiguous 16-byte pieces.
+constexpr int NARROW_THREADS = 256;
+
+template <typename T, int PPT>
+__global__ void __launch_bounds__(NARROW_THREADS)
+    warp_narrow_kernel(WarpArgs a, int n, Rows r, int W, int C,
+                       int64_t ps) {
+  constexpr int PIX = NARROW_THREADS * PPT;
+  __shared__ __align__(16) T tile[PIX * 4];
   const int s = blockIdx.y;
-  const int64_t n = (int64_t)B * r.H_out * W;
-  const T* img = static_cast<const T*>(a.img[s]);
-  T* out = static_cast<T*>(a.out[s]);
-  for (int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; p < n;
-       p += (int64_t)gridDim.x * blockDim.x) {
-    const Taps t = make_taps(a.flow[s], p, r, W);
-    for (int c = 0; c < C; ++c) out[p * C + c] = from_f<T>(tap_sum(img, t, ps, c));
+  const T* __restrict__ img = static_cast<const T*>(a.img[s]);
+  const float* __restrict__ flow = a.flow[s];
+  T* __restrict__ out = static_cast<T*>(a.out[s]);
+  for (int base = blockIdx.x * PIX; base < n; base += gridDim.x * PIX) {
+    Taps t[PPT];
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      const int p = base + k * NARROW_THREADS + threadIdx.x;
+      t[k] = make_taps(p < n ? load_flow(flow, p) : make_float2(0.f, 0.f),
+                       p < n ? p : 0, r, W, ps);
+    }
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      const int lp = k * NARROW_THREADS + threadIdx.x;
+      for (int c = 0; c < C; ++c)
+        tile[lp * C + c] = from_f<T>(tap_sum(img, t[k], c));
+    }
+    __syncthreads();
+    const int nel = min(PIX, n - base) * C;
+    // 16-byte aligned: base is a multiple of 256 pixels, out of 16
+    T* dst = out + (int64_t)base * C;
+    constexpr int V = 16 / sizeof(T);
+    const int nvec = nel / V;
+    for (int v = threadIdx.x; v < nvec; v += NARROW_THREADS)
+      reinterpret_cast<uint4*>(dst)[v] = reinterpret_cast<const uint4*>(tile)[v];
+    for (int e = nvec * V + threadIdx.x; e < nel; e += NARROW_THREADS)
+      dst[e] = tile[e];
+    __syncthreads();
   }
 }
 
-// One thread per (pixel, channel), channel fastest.
-template <typename T>
-__global__ void warp_wide_kernel(WarpArgs a, int B, Rows r, int W, int C,
-                                 int64_t ps) {
+// Wide form (C > 4): VEC channels a chunk (16 bytes, or 1 for ragged or
+// unaligned maps); a block takes `ppb` pixels at a time, `tpp` threads
+// per pixel, the taps computed once per pixel into shared memory.
+constexpr int WIDE_THREADS = 256;
+
+template <typename T, int VEC>
+__device__ __forceinline__ void warp_chunk(const T* __restrict__ img,
+                                           T* __restrict__ out,
+                                           const int64_t* off,
+                                           const float* w, int c) {
+  float acc[VEC];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    __align__(16) T v[VEC];
+    if (off[k] >= 0) {
+      if constexpr (VEC * sizeof(T) == 16)
+        *reinterpret_cast<uint4*>(v) =
+            *reinterpret_cast<const uint4*>(img + off[k] + c);
+      else
+        v[0] = img[off[k] + c];
+    }
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      // an invalid tap contributes 0 * w = +0, like the plain version
+      const float term = __fmul_rn(off[k] >= 0 ? to_f(v[e]) : 0.0f, w[k]);
+      acc[e] = k == 0 ? term : __fadd_rn(acc[e], term);
+    }
+  }
+  __align__(16) T o[VEC];
+#pragma unroll
+  for (int e = 0; e < VEC; ++e) o[e] = from_f<T>(acc[e]);
+  if constexpr (VEC * sizeof(T) == 16)
+    *reinterpret_cast<uint4*>(out + c) = *reinterpret_cast<uint4*>(o);
+  else
+    out[c] = o[0];
+}
+
+template <typename T, int VEC>
+__global__ void __launch_bounds__(WIDE_THREADS)
+    warp_wide_kernel(WarpArgs a, int n, Rows r, int W, int C, int64_t ps,
+                     int tpp, int ppb) {
+  __shared__ int64_t s_off[WIDE_THREADS][4];
+  __shared__ float s_w[WIDE_THREADS][4];
   const int s = blockIdx.y;
-  const int64_t n = (int64_t)B * r.H_out * W * C;
-  const T* img = static_cast<const T*>(a.img[s]);
-  T* out = static_cast<T*>(a.out[s]);
-  for (int64_t e = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; e < n;
-       e += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t p = e / C;
-    const int c = (int)(e - p * C);
-    const Taps t = make_taps(a.flow[s], p, r, W);
-    out[e] = from_f<T>(tap_sum(img, t, ps, c));
+  const T* __restrict__ img = static_cast<const T*>(a.img[s]);
+  const float* __restrict__ flow = a.flow[s];
+  T* __restrict__ out = static_cast<T*>(a.out[s]);
+  const int nch = C / VEC;
+  const int slot = threadIdx.x / tpp;  // once per thread
+  const int lane = threadIdx.x - slot * tpp;
+  for (int base = blockIdx.x * ppb; base < n; base += gridDim.x * ppb) {
+    if (threadIdx.x < ppb && base + threadIdx.x < n) {
+      const int p = base + threadIdx.x;
+      const Taps t = make_taps(load_flow(flow, p), p, r, W, ps);
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        s_off[threadIdx.x][k] = t.off[k];
+        s_w[threadIdx.x][k] = t.w[k];
+      }
+    }
+    __syncthreads();
+    const int p = base + slot;
+    if (slot < ppb && p < n) {
+      int64_t off[4];
+      float w[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        off[k] = s_off[slot][k];
+        w[k] = s_w[slot][k];
+      }
+      T* o = out + (int64_t)p * C;
+      for (int ch = lane; ch < nch; ch += tpp)
+        warp_chunk<T, VEC>(img, o, off, w, ch * VEC);
+    }
+    __syncthreads();
   }
 }
 
@@ -182,32 +289,36 @@ __global__ void warp_blend_kernel(const float* __restrict__ img0,
                                   const float* __restrict__ occ,
                                   float* __restrict__ out, int B, int H,
                                   int W, int C, int64_t ps) {
-  const int64_t n = (int64_t)B * H * W;
+  const int n = B * H * W;
   const Rows rows = {H, H, 0, 0};
-  for (int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; p < n;
-       p += (int64_t)gridDim.x * blockDim.x) {
-    const Taps t0 = make_taps(flow0, p, rows, W);
-    const Taps t1 = make_taps(flow1, p, rows, W);
+  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n;
+       p += gridDim.x * blockDim.x) {
+    const Taps t0 = make_taps(load_flow(flow0, p), p, rows, W, ps);
+    const Taps t1 = make_taps(load_flow(flow1, p), p, rows, W, ps);
     const float o = occ[p];
     const float r = __fsub_rn(1.0f, o);
     for (int c = 0; c < C; ++c)
-      out[p * C + c] = __fadd_rn(__fmul_rn(o, tap_sum(img0, t0, ps, c)),
-                                 __fmul_rn(r, tap_sum(img1, t1, ps, c)));
+      out[(int64_t)p * C + c] =
+          __fadd_rn(__fmul_rn(o, tap_sum(img0, t0, c)),
+                    __fmul_rn(r, tap_sum(img1, t1, c)));
   }
 }
 
-int64_t grid_blocks(int64_t work, int threads) {
-  const int64_t blocks = (work + threads - 1) / threads;
-  return blocks < 65535LL * 16 ? blocks : 65535LL * 16;  // grid-stride loop
+int grid_blocks(int64_t work, int per_block) {
+  const int64_t blocks = (work + per_block - 1) / per_block;
+  return (int)(blocks < 65535LL * 16 ? blocks : 65535LL * 16);  // grid-stride
 }
 
 template <typename T>
 int launch(const void* img0, const void* img1, const void* flow0,
            const void* flow1, void* out0, void* out1, int n_img, int B,
            Rows r, int W, int C, int64_t ps, void* stream) {
+  const int64_t n64 = (int64_t)B * r.H_out * W;
   if (n_img < 1 || n_img > 2 || B < 1 || r.H_out < 1 || r.H_src < 1 ||
-      W < 1 || C < 1 || ps < C)
+      W < 1 || C < 1 || ps < C || n64 >= (1LL << 31) ||
+      (int64_t)B * r.H_src * W >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
+  const int n = (int)n64;
   WarpArgs a;
   a.img[0] = img0;
   a.img[1] = img1;
@@ -215,14 +326,41 @@ int launch(const void* img0, const void* img1, const void* flow0,
   a.flow[1] = static_cast<const float*>(flow1);
   a.out[0] = out0;
   a.out[1] = out1;
-  const int threads = 256;
-  const int64_t work = (int64_t)B * r.H_out * W * (C <= 4 ? 1 : C);
-  dim3 grid((unsigned)grid_blocks(work, threads), (unsigned)n_img);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (C <= 4)
-    warp_narrow_kernel<T><<<grid, threads, 0, st>>>(a, B, r, W, C, ps);
+  for (int k = 0; k < n_img; ++k)  // float2 flow loads
+    if (reinterpret_cast<uintptr_t>(a.flow[k]) % 8)
+      return (int)cudaErrorMisalignedAddress;
+  if (C <= 4) {
+    for (int k = 0; k < n_img; ++k)  // 16-byte stores of the staged tile
+      if (reinterpret_cast<uintptr_t>(a.out[k]) % 16)
+        return (int)cudaErrorMisalignedAddress;
+    if (n >= 132 * 4 * NARROW_THREADS) {  // >= one 4-pixel block per SM
+      dim3 grid(grid_blocks(n, 4 * NARROW_THREADS), n_img);
+      warp_narrow_kernel<T, 4><<<grid, NARROW_THREADS, 0, st>>>(a, n, r, W,
+                                                                 C, ps);
+    } else {
+      dim3 grid(grid_blocks(n, NARROW_THREADS), n_img);
+      warp_narrow_kernel<T, 1><<<grid, NARROW_THREADS, 0, st>>>(a, n, r, W,
+                                                                 C, ps);
+    }
+    return (int)cudaGetLastError();
+  }
+  // 16-byte chunks when C, the pixel stride and the pointers allow
+  constexpr int V = 16 / sizeof(T);
+  bool vec = C % V == 0 && ps % V == 0;
+  for (int k = 0; k < n_img; ++k)
+    vec = vec && reinterpret_cast<uintptr_t>(a.img[k]) % 16 == 0 &&
+          reinterpret_cast<uintptr_t>(a.out[k]) % 16 == 0;
+  const int nch = vec ? C / V : C;
+  const int tpp = nch < WIDE_THREADS ? nch : WIDE_THREADS;
+  const int ppb = WIDE_THREADS / tpp;
+  dim3 grid(grid_blocks(n, ppb), n_img);
+  if (vec)
+    warp_wide_kernel<T, V><<<grid, ppb * tpp, 0, st>>>(a, n, r, W, C, ps,
+                                                       tpp, ppb);
   else
-    warp_wide_kernel<T><<<grid, threads, 0, st>>>(a, B, r, W, C, ps);
+    warp_wide_kernel<T, 1><<<grid, ppb * tpp, 0, st>>>(a, n, r, W, C, ps,
+                                                       tpp, ppb);
   return (int)cudaGetLastError();
 }
 
@@ -278,8 +416,12 @@ extern "C" int warp_blend_f32(const void* img0, const void* img1,
                               const void* flow0, const void* flow1,
                               const void* occ, void* out, int B, int H, int W,
                               int C, int64_t ps, void* stream) {
-  if (B < 1 || H < 1 || W < 1 || C < 1 || ps < C)
+  if (B < 1 || H < 1 || W < 1 || C < 1 || ps < C ||
+      (int64_t)B * H * W >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(flow0) % 8 ||
+      reinterpret_cast<uintptr_t>(flow1) % 8)
+    return (int)cudaErrorMisalignedAddress;
   const int threads = 256;
   warp_blend_kernel<<<(unsigned)grid_blocks((int64_t)B * H * W, threads),
                       threads, 0, static_cast<cudaStream_t>(stream)>>>(

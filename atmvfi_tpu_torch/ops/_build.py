@@ -28,7 +28,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _lib = None
 _lock = threading.Lock()
 build_seconds = None  # wall time of the build this process ran, if any
-ptxas_log = ""
+ptxas_log = ""  # nvcc -Xptxas -v output of the library's build
 
 
 def _nvcc() -> str:
@@ -83,6 +83,8 @@ def _build(srcs, out_path: str) -> None:
              *objs, "-o", tmp_so], capture_output=True, text=True)
         if link.returncode != 0:
             raise RuntimeError(f"nvcc link failed:\n{link.stderr}")
+        with open(out_path + ".ptxas.txt", "w") as f:
+            f.write(ptxas_log)
         os.replace(tmp_so, out_path)  # atomic: readers see all or nothing
     build_seconds = time.perf_counter() - t0
 
@@ -143,11 +145,23 @@ def _declare(lib) -> None:
     lib.warp_blend_f32.argtypes = [P, P, P, P, P, P, I, I, I, I,
                                    ctypes.c_int64, P]
     lib.warp_blend_f32.restype = I
+    # packed weight, Kp, Cout, CUtensorMap out (128 bytes), BN out
+    lib.conv3x3_wgmma_weight_map.argtypes = [P, I, I, P,
+                                             ctypes.POINTER(ctypes.c_int)]
+    lib.conv3x3_wgmma_weight_map.restype = I
+    # x, pixel stride, B, H, W, Cin, weight map, BN, bias, slope, out,
+    # Cout, out pixel stride, stream
+    lib.conv3x3_wgmma_bf16.argtypes = [P, ctypes.c_int64, I, I, I, I, P, I,
+                                       P, P, P, I, ctypes.c_int64, P]
+    lib.conv3x3_wgmma_bf16.restype = I
+    lib.conv3x3_wgmma_smem_bytes.argtypes = [I]
+    lib.conv3x3_wgmma_smem_bytes.restype = I
 
 
 def load_library():
-    """Return the loaded kernel library, building it first if needed."""
-    global _lib
+    """Return the loaded kernel library, building it first if needed
+    (`ptxas_log` holds the build's register and spill report either way)."""
+    global _lib, ptxas_log
     with _lock:
         if _lib is None:
             srcs = _sources()
@@ -155,6 +169,9 @@ def load_library():
                                 f"libatmvfi_kernels_{_digest(srcs)}.so")
             if not os.path.exists(path):
                 _build(srcs, path)
+            elif os.path.exists(path + ".ptxas.txt"):
+                with open(path + ".ptxas.txt") as f:
+                    ptxas_log = f.read()
             lib = ctypes.CDLL(path)
             _declare(lib)
             _lib = lib

@@ -17,7 +17,8 @@ The attention launch (K7, K8 and K1's second launch) runs bf16 on the
 tensor cores (`attn_mma_kernel`: mma.sync, head dims padded to 16 in
 shared memory) and f32 as true f32 on the CUDA cores (`attn_kernel`,
 the parity mode). For CPU tensors each wrapper runs its plain version;
-for CUDA tensors it launches the kernel or raises. `<fn>.calls` counts the calls on any
+for CUDA tensors it launches the kernel or raises, differentiably through
+the plain version's VJP when grad is on (`ops._autograd`). `<fn>.calls` counts the calls on any
 device, `<fn>.launches` the calls that launched the kernel.
 
 Weights are cast to x's dtype (f32 or bf16), the LayerNorm parameters,
@@ -32,7 +33,7 @@ from typing import Optional
 
 import torch
 
-from atmvfi_tpu_torch.ops import _build
+from atmvfi_tpu_torch.ops import _autograd, _build
 from atmvfi_tpu_torch.ops.attention import (
     atm_block_reference,
     window_attention as window_attention_plain,
@@ -62,16 +63,8 @@ def _mask_rel(mask, rel, BW: int, N: int, dev):
     return mask_f, mask_windows, rel_f
 
 
-def atm_block(x, wq, wkv, wproj, bproj, ln_g, ln_b, scale: float,
-              rel: Optional[torch.Tensor], mask: Optional[torch.Tensor],
-              num_heads: int, swap_halves: bool):
-    """Fused block core on packed windows; returns (y, motion | None)."""
-    atm_block.calls += 1
-    if x.device.type == "cpu":
-        return atm_block_reference(x, wq, wkv, wproj, bproj, ln_g, ln_b,
-                                   scale, rel, mask, num_heads, swap_halves)
-    if x.device.type != "cuda":
-        raise ValueError(f"no ATM block for device {x.device}")
+def _launch_block(x, wq, wkv, wproj, bproj, ln_g, ln_b, scale, rel, mask,
+                  num_heads, swap_halves):
     if x.dtype not in _DTYPES:
         raise TypeError(f"ATM block kernel takes f32/bf16, got {x.dtype}")
     if x.dim() != 3 or not x.is_contiguous():
@@ -109,6 +102,22 @@ def atm_block(x, wq, wkv, wproj, bproj, ln_g, ln_b, scale: float,
                 y.data_ptr(), ptr(motion), BW, N, C, h, int(swap_halves),
                 float(scale), stream)
     _build.check(rc, "ATM block kernel launch")
+    return y, motion
+
+
+def atm_block(x, wq, wkv, wproj, bproj, ln_g, ln_b, scale: float,
+              rel: Optional[torch.Tensor], mask: Optional[torch.Tensor],
+              num_heads: int, swap_halves: bool):
+    """Fused block core on packed windows; returns (y, motion | None)."""
+    atm_block.calls += 1
+    if x.device.type == "cpu":
+        return atm_block_reference(x, wq, wkv, wproj, bproj, ln_g, ln_b,
+                                   scale, rel, mask, num_heads, swap_halves)
+    if x.device.type != "cuda":
+        raise ValueError(f"no ATM block for device {x.device}")
+    y, motion = _autograd.launch(_launch_block, atm_block_reference, x, wq,
+                                 wkv, wproj, bproj, ln_g, ln_b, scale, rel,
+                                 mask, num_heads, swap_halves)
     atm_block.launches += 1
     return y, motion
 
@@ -147,13 +156,7 @@ def _on_card(t: torch.Tensor) -> bool:
     return True
 
 
-def window_attention(q, kv, scale: float, rel: Optional[torch.Tensor],
-                     mask: Optional[torch.Tensor], num_heads: int):
-    """K7: attention + motion on packed q [BW, N, C], kv [BW, N, 2C];
-    returns (out [BW, N, C], motion [BW, N, 2h] | None) in q's type."""
-    window_attention.calls += 1
-    if not _on_card(q):
-        return window_attention_plain(q, kv, scale, rel, mask, num_heads)
+def _launch_packed(q, kv, scale, rel, mask, num_heads):
     BW, N, C = q.shape
     h = num_heads
     if (tuple(kv.shape) != (BW, N, 2 * C) or kv.dtype != q.dtype
@@ -173,18 +176,23 @@ def window_attention(q, kv, scale: float, rel: Optional[torch.Tensor],
     _attention_launch(views, (out, (N * C, hd, C)),
                       (motion, (N * 2 * h, 2, 2 * h)), rel, mask, BW, N, hd,
                       h, scale)
+    return out, motion
+
+
+def window_attention(q, kv, scale: float, rel: Optional[torch.Tensor],
+                     mask: Optional[torch.Tensor], num_heads: int):
+    """K7: attention + motion on packed q [BW, N, C], kv [BW, N, 2C];
+    returns (out [BW, N, C], motion [BW, N, 2h] | None) in q's type."""
+    window_attention.calls += 1
+    if not _on_card(q):
+        return window_attention_plain(q, kv, scale, rel, mask, num_heads)
+    out, motion = _autograd.launch(_launch_packed, window_attention_plain, q,
+                                   kv, scale, rel, mask, num_heads)
     window_attention.launches += 1
     return out, motion
 
 
-def window_attention_heads(q, k, v, scale: float,
-                           rel: Optional[torch.Tensor],
-                           mask: Optional[torch.Tensor]):
-    """K8: attention + motion on head-major q, k, v [BW, h, N, d];
-    returns (out [BW, h, N, d], motion [BW, h, N, 2] | None)."""
-    window_attention_heads.calls += 1
-    if not _on_card(q):
-        return window_attention_heads_plain(q, k, v, scale, rel, mask)
+def _launch_heads(q, k, v, scale, rel, mask):
     BW, h, N, d = q.shape
     for t in (k, v):
         if t.shape != q.shape or t.dtype != q.dtype or t.device != q.device:
@@ -198,6 +206,20 @@ def window_attention_heads(q, k, v, scale: float,
     _attention_launch(views, (out, (h * N * d, N * d, d)),
                       (motion, (h * N * 2, N * 2, 2)), rel, mask, BW, N, d,
                       h, scale)
+    return out, motion
+
+
+def window_attention_heads(q, k, v, scale: float,
+                           rel: Optional[torch.Tensor],
+                           mask: Optional[torch.Tensor]):
+    """K8: attention + motion on head-major q, k, v [BW, h, N, d];
+    returns (out [BW, h, N, d], motion [BW, h, N, 2] | None)."""
+    window_attention_heads.calls += 1
+    if not _on_card(q):
+        return window_attention_heads_plain(q, k, v, scale, rel, mask)
+    out, motion = _autograd.launch(_launch_heads,
+                                   window_attention_heads_plain, q, k, v,
+                                   scale, rel, mask)
     window_attention_heads.launches += 1
     return out, motion
 

@@ -2,7 +2,13 @@
 (`csrc/conv3x3.cu`, `csrc/conv_pair.cu`).
 
 * `conv3x3` (K3) replaces `atmvfi_tpu/ops/conv_pallas.py::conv3x3_hcw_op`:
-  stride 1, 'same' zero padding.
+  stride 1, 'same' zero padding. A bf16 map of at least 32 channels
+  whose pixel stride is a multiple of 8 and whose pointer is 16-byte
+  aligned (every such site of the main path) runs the wgmma + TMA
+  kernel (`csrc/conv3x3_wgmma.cu`); f32 (the parity mode) and narrower
+  maps (the encoder's 24 channels, where the kernel's 64-channel rows
+  would be mostly zero fill) run the mma.sync implicit GEMM
+  (`csrc/igemm.cuh`). `conv3x3.wgmma_launches` counts the former.
 * `conv3x3_s2` (K4) replaces `conv3x3s2_hcw_op`: stride 2, pad 1, out
   ceil(H/2) x ceil(W/2).
 * `conv3x3_multi` (K5) replaces `conv3x3_hcw_planes_op` and
@@ -13,9 +19,10 @@
   (+ PReLU_b), the intermediate kept on chip.
 
 For CPU tensors each runs its plain version (`ops.conv`); for
-CUDA tensors it launches the kernel or raises. `<fn>.calls` counts the
-calls on any device, `<fn>.launches` the kernel launches (one per call
-on the card).
+CUDA tensors it launches the kernel or raises, differentiably through
+the plain version's VJP when grad is on (`ops._autograd`). `<fn>.calls`
+counts the calls on any device, `<fn>.launches` the kernel launches
+(one per call on the card).
 
 Activations are NHWC with contiguous channels; the pixel stride may be
 larger than C, so a channel slice (`feat[..., :-5]`) is read in place.
@@ -25,19 +32,22 @@ multiple of 8 (389, 197, 101, 3) is a channel view of a map whose pixel
 stride is rounded up to 8, so the next kernel reads it with 16-byte
 vectors (`vec_readable`); on the CPU outputs are contiguous.
 
-`weight` is the f32 OIHW parameter; the wrapper packs it once per call
-into the working type as [9, Cout, Kp] (Kp = channels rounded up to 8,
-zeros beyond) -- the cast every conv paid anyway. Bias and slope are
+`weight` is the f32 OIHW parameter; the wrapper packs it into the
+working type as [9, Cout, Kp] (Kp = channels rounded up to 8, zeros
+beyond) and keeps the pack (and K3's weight tensor map) per weight
+(`cached_pack`: keyed on the weight's identity, data_ptr, _version,
+dtype and shape, so an in-place update repacks). Bias and slope are
 read as f32.
 """
 from __future__ import annotations
 
 import ctypes
+import weakref
 from typing import Optional, Sequence
 
 import torch
 
-from atmvfi_tpu_torch.ops import _build
+from atmvfi_tpu_torch.ops import _autograd, _build
 from atmvfi_tpu_torch.ops.conv import conv3x3 as conv3x3_plain
 from atmvfi_tpu_torch.ops.conv import conv3x3_pair as conv3x3_pair_plain
 
@@ -128,6 +138,28 @@ def _describe(sources, dtype):
     return desc, ctot
 
 
+_packs = {}  # (id(weight), kind, dtype) -> (weakref, fingerprint, value)
+
+
+def cached_pack(weight: torch.Tensor, kind: str, dtype, make):
+    """make() once per (weight, kind, dtype); made anew when the weight
+    changes (another data_ptr, an in-place update bumping `_version`,
+    another shape or dtype). An entry dies with its weight."""
+    try:
+        version = weight._version
+    except RuntimeError:  # an inference tensor keeps no version: no cache
+        return make()
+    key = (id(weight), kind, dtype)
+    fp = (weight.data_ptr(), version, tuple(weight.shape), weight.dtype)
+    hit = _packs.get(key)
+    if hit is not None and hit[0]() is weight and hit[1] == fp:
+        return hit[2]
+    value = make()
+    _packs[key] = (weakref.ref(weight, lambda _, k=key: _packs.pop(k, None)),
+                   fp, value)
+    return value
+
+
 def _pack3x3(weight: torch.Tensor, cin: int, dtype, dev):
     """OIHW [Cout, cin, 3, 3] -> packed [9, Cout, Kp] in `dtype`, Kp."""
     cout = weight.shape[0]
@@ -136,7 +168,54 @@ def _pack3x3(weight: torch.Tensor, cin: int, dtype, dev):
                          f"{tuple(weight.shape)}")
     if weight.device != dev:
         raise ValueError("weight and input on different devices")
-    return pack_weight((3, 3, cout), weight.permute(2, 3, 0, 1), cin, dtype)
+    return cached_pack(weight, "3x3", dtype, lambda: pack_weight(
+        (3, 3, cout), weight.detach().permute(2, 3, 0, 1), cin, dtype))
+
+
+def _wgmma_weight(weight: torch.Tensor, cin: int, dev):
+    """(packed bf16 weight, its 128-byte tensor map, column tile BN) for
+    K3's wgmma kernel, cached with the pack."""
+    w, kp = _pack3x3(weight, cin, torch.bfloat16, dev)
+
+    def make():
+        tmap = ctypes.create_string_buffer(128)
+        bn = ctypes.c_int(0)
+        lib = _build.load_library()
+        with torch.cuda.device(dev):
+            rc = lib.conv3x3_wgmma_weight_map(w.data_ptr(), kp,
+                                              weight.shape[0], tmap,
+                                              ctypes.byref(bn))
+        _build.check(rc, "conv3x3 wgmma weight map")
+        return w, tmap, bn.value
+
+    return cached_pack(weight, "3x3 wgmma map", torch.bfloat16, make)
+
+
+def _wgmma_eligible(x: torch.Tensor) -> bool:
+    """Whether K3 takes x on its wgmma + TMA kernel: bf16, >= 32
+    channels, pixel stride a multiple of 8, pointer 16-byte aligned (a
+    TMA tensor map needs 16-byte strides and base)."""
+    return (x.dtype == torch.bfloat16 and x.shape[3] >= 32
+            and pixel_stride(x) % 8 == 0 and x.data_ptr() % 16 == 0)
+
+
+def _launch_wgmma(x, weight, bias, slope):
+    dev = x.device
+    B, H, W, cin = x.shape
+    cout = weight.shape[0]
+    w, tmap, bn = _wgmma_weight(weight, cin, dev)
+    b = _vec(bias, cout, "bias", dev)
+    a = _vec(slope, cout, "slope", dev)
+    out = empty_nhwc(B, H, W, cout, torch.bfloat16, dev)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.conv3x3_wgmma_bf16(
+            x.data_ptr(), pixel_stride(x), B, H, W, cin, tmap, bn,
+            b.data_ptr(), 0 if a is None else a.data_ptr(), out.data_ptr(),
+            cout, out.stride(2), stream)
+    _build.check(rc, "conv3x3 wgmma kernel launch")
+    return out
 
 
 def _launch(entry: str, sources, weight, bias, slope, stride: int, dtype):
@@ -166,15 +245,28 @@ def _run(fn, entry: str, sources, weight, bias, slope, stride, dtype):
         return conv3x3_plain(sources, weight, bias, slope, stride, dtype)
     if dev.type != "cuda":
         raise ValueError(f"no conv kernel for device {dev}")
-    out = _launch(entry, sources, weight, bias, slope, stride, dtype)
+    out = _autograd.launch(
+        lambda s, w, b, a, st, dt: _launch(entry, s, w, b, a, st, dt),
+        conv3x3_plain, sources, weight, bias, slope, stride, dtype)
     fn.launches += 1
     return out
+
+
+def _conv3x3_plain1(x, weight, bias, slope):
+    return conv3x3_plain([x], weight, bias, slope, 1, x.dtype)
 
 
 def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             slope: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K3: stride-1 3x3 conv + bias (+ PReLU) in x's type."""
-    return _run(conv3x3, "conv3x3", [x], weight, bias, slope, 1, x.dtype)
+    if x.device.type != "cuda" or not _wgmma_eligible(x):
+        return _run(conv3x3, "conv3x3", [x], weight, bias, slope, 1, x.dtype)
+    conv3x3.calls += 1
+    out = _autograd.launch(_launch_wgmma, _conv3x3_plain1, x, weight, bias,
+                           slope)
+    conv3x3.launches += 1
+    conv3x3.wgmma_launches += 1
+    return out
 
 
 def conv3x3_s2(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -195,18 +287,8 @@ def conv3x3_multi(sources: Sequence[torch.Tensor], weight: torch.Tensor,
                 slope, 1, dt)
 
 
-def conv3x3_pair(x: torch.Tensor, wa: torch.Tensor, ba: torch.Tensor,
-                 sa: Optional[torch.Tensor], wb: torch.Tensor,
-                 bb: torch.Tensor,
-                 sb: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K12: conv_b(round(PReLU_a(conv_a(x) + ba))) + bb (+ PReLU_b), two
-    stride-1 3x3 convs in x's type; `sa` None runs conv_a without PReLU."""
-    conv3x3_pair.calls += 1
+def _launch_pair(x, wa, ba, sa, wb, bb, sb):
     dev = x.device
-    if dev.type == "cpu":
-        return conv3x3_pair_plain(x, wa, ba, sa, wb, bb, sb)
-    if dev.type != "cuda":
-        raise ValueError(f"no conv kernel for device {dev}")
     dt = x.dtype
     desc, cin = _describe([x], dt)
     B, H, W, _ = x.shape
@@ -225,6 +307,23 @@ def conv3x3_pair(x: torch.Tensor, wa: torch.Tensor, ba: torch.Tensor,
                 ptr(vecs[1]), cmid, pb.data_ptr(), kpb, ptr(vecs[2]),
                 ptr(vecs[3]), out.data_ptr(), cout, out.stride(2), stream)
     _build.check(rc, "conv3x3_pair kernel launch")
+    return out
+
+
+def conv3x3_pair(x: torch.Tensor, wa: torch.Tensor, ba: torch.Tensor,
+                 sa: Optional[torch.Tensor], wb: torch.Tensor,
+                 bb: torch.Tensor,
+                 sb: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K12: conv_b(round(PReLU_a(conv_a(x) + ba))) + bb (+ PReLU_b), two
+    stride-1 3x3 convs in x's type; `sa` None runs conv_a without PReLU."""
+    conv3x3_pair.calls += 1
+    dev = x.device
+    if dev.type == "cpu":
+        return conv3x3_pair_plain(x, wa, ba, sa, wb, bb, sb)
+    if dev.type != "cuda":
+        raise ValueError(f"no conv kernel for device {dev}")
+    out = _autograd.launch(_launch_pair, conv3x3_pair_plain, x, wa, ba, sa,
+                           wb, bb, sb)
     conv3x3_pair.launches += 1
     return out
 
@@ -232,3 +331,4 @@ def conv3x3_pair(x: torch.Tensor, wa: torch.Tensor, ba: torch.Tensor,
 for _fn in (conv3x3, conv3x3_s2, conv3x3_multi, conv3x3_pair):
     _fn.calls = 0
     _fn.launches = 0
+conv3x3.wgmma_launches = 0

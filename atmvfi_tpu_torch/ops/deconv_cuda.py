@@ -3,13 +3,16 @@
 
 Replaces `atmvfi_tpu/ops/deconv_pallas.py::deconv2x_hcw_op`. For CPU
 tensors the wrapper runs the plain version `ops.conv.deconv2x`; for
-CUDA tensors it launches the kernel or raises. `deconv2x.calls` counts
-the calls on any device, `deconv2x.launches` the kernel launches.
+CUDA tensors it launches the kernel or raises, differentiably through
+the plain version's VJP when grad is on (`ops._autograd`).
+`deconv2x.calls` counts the calls on any device, `deconv2x.launches` the
+kernel launches.
 
 x is NHWC (f32 or bf16, any pixel stride with contiguous channels) and
 is computed in its own type. `weight` is the f32 nn.ConvTranspose2d
-parameter [Cin, Cout, 2, 2], packed once per call into the working type
-as [4 * Cout, Kp] with row (2 * dy + dx) * Cout + o. The output is a
+parameter [Cin, Cout, 2, 2], packed into the working type as
+[4 * Cout, Kp] with row (2 * dy + dx) * Cout + o and kept per weight
+(`ops.conv_cuda.cached_pack`). The output is a
 new [B, 2H, 2W, Cout] tensor, on the card with its pixel stride rounded
 up to 8 (see `ops.conv_cuda`).
 """
@@ -19,11 +22,12 @@ from typing import Optional
 
 import torch
 
-from atmvfi_tpu_torch.ops import _build
+from atmvfi_tpu_torch.ops import _autograd, _build
 from atmvfi_tpu_torch.ops.conv import deconv2x as deconv2x_plain
 from atmvfi_tpu_torch.ops.conv_cuda import (
     _DTYPES,
     _vec,
+    cached_pack,
     empty_nhwc,
     pack_weight,
     pixel_stride,
@@ -43,8 +47,8 @@ def _launch(x, weight, bias, slope):
     if weight.device != x.device:
         raise ValueError("weight and input on different devices")
     cout = weight.shape[1]
-    w, kp = pack_weight((2, 2, cout), weight.permute(2, 3, 1, 0), cin,
-                        x.dtype)
+    w, kp = cached_pack(weight, "deconv2x", x.dtype, lambda: pack_weight(
+        (2, 2, cout), weight.detach().permute(2, 3, 1, 0), cin, x.dtype))
     b = _vec(bias, cout, "bias", x.device)
     a = _vec(slope, cout, "slope", x.device)
     out = empty_nhwc(B, 2 * H, 2 * W, cout, x.dtype, x.device)
@@ -67,7 +71,7 @@ def deconv2x(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         return deconv2x_plain(x, weight, bias, slope)
     if x.device.type != "cuda":
         raise ValueError(f"no deconv kernel for device {x.device}")
-    out = _launch(x, weight, bias, slope)
+    out = _autograd.launch(_launch, deconv2x_plain, x, weight, bias, slope)
     deconv2x.launches += 1
     return out
 

@@ -11,8 +11,11 @@ on feature maps (`atmvfi_tpu/ops/warp.py::flow_warp_rows`, an XLA gather
 on the TPU): K2's kernel with a row offset, full sources and the
 caller's output rows. For CPU tensors each wrapper
 runs its plain version (`ops.warp`); for CUDA tensors it launches the
-kernel or raises. `<fn>.calls` counts the calls on any device,
-`<fn>.launches` the kernel launches (one per call on the card).
+kernel or raises; with grad enabled and an operand requiring grad the
+launch is differentiable through the plain version's VJP
+(`ops._autograd`), as the JAX ops' custom VJPs are. `<fn>.calls` counts
+the calls on any device, `<fn>.launches` the kernel launches (one per
+call on the card).
 
 Images are NHWC with the channel dim contiguous; the pixel stride may
 be larger than C, so a channel slice of a wider map
@@ -23,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from atmvfi_tpu_torch.ops import _build
+from atmvfi_tpu_torch.ops import _autograd, _build
 from atmvfi_tpu_torch.ops.warp import flow_warp as flow_warp_plain
 from atmvfi_tpu_torch.ops.warp import flow_warp_blend as flow_warp_blend_plain
 from atmvfi_tpu_torch.ops.warp import flow_warp_rows as flow_warp_rows_plain
@@ -82,6 +85,14 @@ def _launch(imgs, flows):
     return outs
 
 
+def _launch_pair(im0, im1, flow0, flow1):
+    return tuple(_launch([im0, im1], [flow0, flow1]))
+
+
+def _pair_plain(im0, im1, flow0, flow1):
+    return flow_warp_plain(im0, flow0), flow_warp_plain(im1, flow1)
+
+
 def flow_warp(feature: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Backward-warp `feature` [B, H, W, C] by `flow` [B, H, W, 2]."""
     flow_warp.calls += 1
@@ -89,7 +100,8 @@ def flow_warp(feature: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
         return flow_warp_plain(feature, flow)
     if feature.device.type != "cuda":
         raise ValueError(f"no warp for device {feature.device}")
-    out = _launch([feature], [flow])[0]
+    out = _autograd.launch(lambda f, fl: _launch([f], [fl])[0],
+                           flow_warp_plain, feature, flow)
     flow_warp.launches += 1
     return out
 
@@ -99,23 +111,16 @@ def flow_warp_pair(im0: torch.Tensor, im1: torch.Tensor, flow0: torch.Tensor,
     """(warp(im0, flow0), warp(im1, flow1)) in one launch on the card."""
     flow_warp_pair.calls += 1
     if im0.device.type == "cpu":
-        return flow_warp_plain(im0, flow0), flow_warp_plain(im1, flow1)
+        return _pair_plain(im0, im1, flow0, flow1)
     if im0.device.type != "cuda":
         raise ValueError(f"no warp for device {im0.device}")
-    out0, out1 = _launch([im0, im1], [flow0, flow1])
+    out0, out1 = _autograd.launch(_launch_pair, _pair_plain, im0, im1, flow0,
+                                  flow1)
     flow_warp_pair.launches += 1
     return out0, out1
 
 
-def flow_warp_blend(im0: torch.Tensor, im1: torch.Tensor, flow0: torch.Tensor,
-                    flow1: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
-    """K9: occ * warp(im0, flow0) + (1 - occ) * warp(im1, flow1) on f32
-    images, flows and occlusion [B, H, W, 1]; one f32 output."""
-    flow_warp_blend.calls += 1
-    if im0.device.type == "cpu":
-        return flow_warp_blend_plain(im0, im1, flow0, flow1, occ)
-    if im0.device.type != "cuda":
-        raise ValueError(f"no warp blend for device {im0.device}")
+def _launch_blend(im0, im1, flow0, flow1, occ):
     if im0.dtype != torch.float32 or im1.dtype != torch.float32:
         raise TypeError("warp blend kernel takes f32 images")
     ps = _check(im0, flow0)
@@ -137,6 +142,20 @@ def flow_warp_blend(im0: torch.Tensor, im1: torch.Tensor, flow0: torch.Tensor,
                                 occ.data_ptr(), out.data_ptr(), B, H, W, C,
                                 ps, stream)
     _build.check(rc, "warp blend kernel launch")
+    return out
+
+
+def flow_warp_blend(im0: torch.Tensor, im1: torch.Tensor, flow0: torch.Tensor,
+                    flow1: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
+    """K9: occ * warp(im0, flow0) + (1 - occ) * warp(im1, flow1) on f32
+    images, flows and occlusion [B, H, W, 1]; one f32 output."""
+    flow_warp_blend.calls += 1
+    if im0.device.type == "cpu":
+        return flow_warp_blend_plain(im0, im1, flow0, flow1, occ)
+    if im0.device.type != "cuda":
+        raise ValueError(f"no warp blend for device {im0.device}")
+    out = _autograd.launch(_launch_blend, flow_warp_blend_plain, im0, im1,
+                           flow0, flow1, occ)
     flow_warp_blend.launches += 1
     return out
 
@@ -149,17 +168,7 @@ def _check_row0(row0: int, h_out: int) -> int:
     return int(row0)
 
 
-def warp_pair_srcfull(im0_full: torch.Tensor, im1_full: torch.Tensor,
-                      flow0: torch.Tensor, flow1: torch.Tensor, row0: int):
-    """K10: full f32 sources [1, H_full, W, C] warped onto output rows
-    [row0, row0 + H_out) by the flows of those rows [1, H_out, W, 2],
-    row0 folded into the flows' y; two [1, H_out, W, C] f32, one launch."""
-    warp_pair_srcfull.calls += 1
-    row0 = _check_row0(row0, flow0.shape[1])
-    if im0_full.device.type == "cpu":
-        return srcfull_plain(im0_full, im1_full, flow0, flow1, row0)
-    if im0_full.device.type != "cuda":
-        raise ValueError(f"no warp for device {im0_full.device}")
+def _launch_srcfull(im0_full, im1_full, flow0, flow1, row0):
     if im0_full.dtype != torch.float32 or im1_full.dtype != torch.float32:
         raise TypeError("K10 takes f32 sources")
     ps = _check(im0_full, flow0, rows=True)
@@ -180,8 +189,40 @@ def warp_pair_srcfull(im0_full: torch.Tensor, im1_full: torch.Tensor,
             flow1.data_ptr(), outs[0].data_ptr(), outs[1].data_ptr(), H_out,
             H_src, W, C, ps, row0, stream)
     _build.check(rc, "K10 warp_pair_srcfull launch")
+    return outs[0], outs[1]
+
+
+def warp_pair_srcfull(im0_full: torch.Tensor, im1_full: torch.Tensor,
+                      flow0: torch.Tensor, flow1: torch.Tensor, row0: int):
+    """K10: full f32 sources [1, H_full, W, C] warped onto output rows
+    [row0, row0 + H_out) by the flows of those rows [1, H_out, W, 2],
+    row0 folded into the flows' y; two [1, H_out, W, C] f32, one launch."""
+    warp_pair_srcfull.calls += 1
+    row0 = _check_row0(row0, flow0.shape[1])
+    if im0_full.device.type == "cpu":
+        return srcfull_plain(im0_full, im1_full, flow0, flow1, row0)
+    if im0_full.device.type != "cuda":
+        raise ValueError(f"no warp for device {im0_full.device}")
+    outs = _autograd.launch(_launch_srcfull, srcfull_plain, im0_full,
+                            im1_full, flow0, flow1, row0)
     warp_pair_srcfull.launches += 1
     return outs[0], outs[1]
+
+
+def _launch_rows(feature, flow_rows, row0):
+    ps = _check(feature, flow_rows, rows=True)
+    B, H_src, W, C = feature.shape
+    H_out = flow_rows.shape[1]
+    out = torch.empty((B, H_out, W, C), dtype=feature.dtype,
+                      device=feature.device)
+    lib = _build.load_library()
+    fn = getattr(lib, f"flow_warp_rows_{_DTYPES[feature.dtype]}")
+    with torch.cuda.device(feature.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(feature.data_ptr(), flow_rows.data_ptr(), out.data_ptr(), B,
+                H_out, H_src, W, C, ps, row0, stream)
+    _build.check(rc, "flow_warp_rows launch")
+    return out
 
 
 def flow_warp_rows(feature: torch.Tensor, flow_rows: torch.Tensor,
@@ -195,18 +236,8 @@ def flow_warp_rows(feature: torch.Tensor, flow_rows: torch.Tensor,
         return flow_warp_rows_plain(feature, flow_rows, row0)
     if feature.device.type != "cuda":
         raise ValueError(f"no warp for device {feature.device}")
-    ps = _check(feature, flow_rows, rows=True)
-    B, H_src, W, C = feature.shape
-    H_out = flow_rows.shape[1]
-    out = torch.empty((B, H_out, W, C), dtype=feature.dtype,
-                      device=feature.device)
-    lib = _build.load_library()
-    fn = getattr(lib, f"flow_warp_rows_{_DTYPES[feature.dtype]}")
-    with torch.cuda.device(feature.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(feature.data_ptr(), flow_rows.data_ptr(), out.data_ptr(), B,
-                H_out, H_src, W, C, ps, row0, stream)
-    _build.check(rc, "flow_warp_rows launch")
+    out = _autograd.launch(_launch_rows, flow_warp_rows_plain, feature,
+                           flow_rows, row0)
     flow_warp_rows.launches += 1
     return out
 

@@ -4,6 +4,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --conv-sites   # the build and phase 3 alone
     python3 chip_smoke.py --route-kernels   # the build and phase 4 alone
+    python3 chip_smoke.py --gradients   # the build and phase 10 alone
 
 Phases, one JSON object per line:
   1. device: the card (nvidia-smi name and power limit), torch and CUDA
@@ -16,7 +17,11 @@ Phases, one JSON object per line:
      events, the bound from bytes and operations, and as a yardstick
      the library call that computes the same function (F.grid_sample
      for the warp; for the conv kernels K3-K6 the cuDNN conv + bias +
-     F.prelu that they replace), at every distinct conv site.
+     F.prelu that they replace), at every distinct conv site. A bf16 K3
+     site runs the wgmma + TMA kernel where it takes the map (>= 32
+     channels), and is also timed on the mma.sync implicit GEMM
+     (`conv3x3_multi` with one source: the same `launch_igemm` K3 ran
+     before; a yardstick, outside the per-forward launch checks).
   4. route kernels: K7 / K8 (window attention + motion, packed and
      head-major; the launch K1 runs too) at the three base window shapes
      and at the lite local and global ones (head dims 28 and 44), f32
@@ -32,7 +37,8 @@ Phases, one JSON object per line:
      (attention_impl="pallas", warp_impl="tiled_blend",
      hcw_fuse_pairs=True) and the fast serving profile (two frames
      each); each run checks the output and the kernel launch counts of
-     every wrapper (set to 0 just before it) and reports ms/frame.
+     every wrapper (set to 0 just before it; the K3 launches on the
+     wgmma kernel among them) and reports ms/frame.
   6. agreement: seeded f32 models on the card (kernels) against the
      port on the CPU (plain versions) at 256x448: base with global
      motion, lite with and without it, base on the opt-in routes and
@@ -55,13 +61,21 @@ Phases, one JSON object per line:
      monolithic forward on the card (max |d| <= 1e-4) and against
      spatial on the CPU (<= 1e-3); the ensemble forward on the card
      against the CPU (<= 1e-3).
+ 10. gradients: every kernel wrapper at a small shape on the card with
+     grad enabled (f32, TF32 off; K3's wgmma route in bf16): its output
+     has a grad_fn and its input and parameter gradients match autograd
+     through the plain version (max |d| <= 1e-5 x the gradient's max
+     |g|; bf16 1e-2, one bf16 step); then the narrow lite network at
+     64x96 f32, loss = weighted mean of I_t: every parameter gets a
+     gradient within 1e-3 x that tensor's max |g| of the CPU port's.
 Then the {"kernels": [...]} line, the card's name and power limit, and
 the last line {"ok": true, "device": {...}}. With --conv-sites it runs
 only the build and the K3-K6 sites and prints their times as one JSON
 line (to compare two checkouts in one call); with --route-kernels only
-the build and phase 4. Any failed phase raises and the script exits
-non-zero; without a CUDA device, or without the repo beside it, it
-exits non-zero before printing any result.
+the build and phase 4; with --gradients only the build and phase 10.
+Any failed phase raises and the script exits non-zero; without a CUDA
+device, or without the repo beside it, it exits non-zero before
+printing any result.
 """
 import json
 import os
@@ -94,6 +108,9 @@ ROUTES_PER_FORWARD = {"window_attention": 6, "flow_warp_blend": 5,
                       "conv3x3_pair": 4}
 # the fast profile: no full-resolution pre-align pair (3 + 5 blends)
 FAST_PER_FORWARD = dict(PER_FORWARD, flow_warp_pair=8)
+# K3 launches on the wgmma kernel: all but the encoder's 24->24 site
+# (fewer than 32 input channels), which stays on igemm
+WGMMA_PER_FORWARD = {"default": 21, "routes": 13, "fast": 21}
 
 # every conv-kernel site of the base main path at 1088x1920 (global
 # motion on; frames stacked, so the encoder runs on batch 2):
@@ -164,19 +181,21 @@ def nvidia_smi_line() -> str:
 
 
 def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
-    """Mean ms of fn() over reps launches, timed with CUDA events."""
+    """Mean ms of fn() over reps launches, timed with CUDA events, with
+    autograd off as serving runs the kernels."""
     import torch
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(reps):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
+    with torch.no_grad():
+        for _ in range(warmup):
+            fn()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
 
 
@@ -400,6 +419,7 @@ def phase_conv_kernels(torch):
                 return x.to(dt)
             return empty_nhwc(*x.shape, dt, "cuda").copy_(x)
 
+        wgmma0 = conv_cuda.conv3x3.wgmma_launches
         for dt in (torch.float32, bf16):
             srcs = [x if s[4] else layout(x, dt) for x, s in zip(base, shapes)]
             if deconv:
@@ -432,11 +452,17 @@ def phase_conv_kernels(torch):
                 y = F.conv2d(x, w.to(bf16), b.to(bf16), stride, 1)
             return y if a is None else F.prelu(y, a.to(bf16))
 
+        route = ("wgmma" if conv_cuda.conv3x3.wgmma_launches > wgmma0
+                 else "igemm")
         big = B * H * W >= 500_000
         reps = 5 if big else 20
+        extra = {}
         with torch.no_grad():
             ms, plain_ms, lib_ms = (cuda_ms(run, reps), cuda_ms(ref, reps),
                                     cuda_ms(library, reps))
+            if kind == "conv3x3":  # K3 as PR 5 ran it: launch_igemm
+                extra = dict(route=route, igemm_ms=cuda_ms(
+                    lambda: conv_cuda.conv3x3_multi(srcs, w, b, a), reps))
         out_px = (4 * B * H * W if deconv
                   else B * (-(-H // stride)) * (-(-W // stride)))
         nbytes = (sum(x.numel() * x.element_size() for x in srcs)
@@ -453,12 +479,15 @@ def phase_conv_kernels(torch):
                    bf16_mean_abs_err=h_mean, bf16_max_abs_err=h_max,
                    max_abs_err=max(f_max, h_max), ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                   flops=flops, bytes=nbytes)
+                   flops=flops, bytes=nbytes, **extra)
         emit(rec)
         if not (f_max <= 1e-4 and h_mean <= 1e-3):
             raise AssertionError(f"{kind} {site}: f32 max |d| {f_max} "
                                  f"(<= 1e-4), bf16 mean |d| {h_mean} "
                                  "(<= 1e-3)")
+        want = "igemm" if cin < 32 else "wgmma"
+        if kind == "conv3x3" and route != want:
+            raise AssertionError(f"K3 {site}: bf16 ran on {route}")
         results[kind].append(rec)
         del srcs, base, dense
         torch.cuda.empty_cache()
@@ -731,18 +760,22 @@ def phase_main_path(torch, name: str, routes: dict, fast: bool,
     pairs = smooth_frames(torch, frames + 1, 1080, 1920, seed=3)
     pipe.interpolate(*pairs[0])  # warm-up: cuDNN plans, masks
     torch.cuda.synchronize()
+    k3 = counters["conv3x3"]
     for fn in counters.values():
         fn.launches = 0
+    k3.wgmma_launches = 0
     t0 = time.perf_counter()
     outs = [pipe.interpolate(f0, f1) for f0, f1 in pairs[1:]]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
+    launches["conv3x3_wgmma"] = k3.wgmma_launches
     n = len(outs)
     for o in outs:
         if o.shape != (1080, 1920, 3) or o.dtype.name != "uint8":
             raise AssertionError(f"bad output {o.shape} {o.dtype}")
-    for k in COUNTED:
+    per_forward = dict(per_forward, conv3x3_wgmma=WGMMA_PER_FORWARD[name])
+    for k in launches:
         if launches[k] != per_forward.get(k, 0) * n:
             raise AssertionError(f"{name}: {k}: {launches[k]} launches in "
                                  f"{n} forwards, expected "
@@ -801,9 +834,11 @@ def spatial_per_frame(n: int) -> dict:
     pre-align + 2 decoder-input row warps, the three decoder stages (K6
     3, K3 6), the scale-0 pre-align and blend (K10 2) and the refinement
     (K5 1, K4 3, K3 7, K6 3); once on the card, the replicated global
-    branch (K1 2, K3 2)."""
+    branch (K1 2, K3 2). All K3 launches but each shard's encoder 24->24
+    run the wgmma kernel."""
     return {"atm_block": 4 * n + 2, "conv3x3": 20 * n + 2,
-            "conv3x3_s2": 7 * n, "conv3x3_multi": 2 * n, "deconv2x": 6 * n,
+            "conv3x3_wgmma": 19 * n + 2, "conv3x3_s2": 7 * n,
+            "conv3x3_multi": 2 * n, "deconv2x": 6 * n,
             "flow_warp_rows": 4 * n, "warp_pair_srcfull": 2 * n}
 
 
@@ -953,18 +988,21 @@ def phase_spatial_main_path(torch, n: int, frames: int = 2):
     pairs = smooth_frames(torch, frames + 1, 1080, 1920, seed=7)
     pipe.interpolate(*pairs[0])  # warm-up
     torch.cuda.synchronize()
+    k3 = counters["conv3x3"]
     for fn in counters.values():
         fn.launches = 0
+    k3.wgmma_launches = 0
     t0 = time.perf_counter()
     outs = [pipe.interpolate(f0, f1) for f0, f1 in pairs[1:]]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
+    launches["conv3x3_wgmma"] = k3.wgmma_launches
     per_frame = spatial_per_frame(n)
     for o in outs:
         if o.shape != (1080, 1920, 3) or o.dtype.name != "uint8":
             raise AssertionError(f"bad output {o.shape} {o.dtype}")
-    for k in COUNTED:
+    for k in launches:
         if launches[k] != per_frame.get(k, 0) * frames:
             raise AssertionError(f"spatial n={n}: {k}: {launches[k]} "
                                  f"launches in {frames} frames, expected "
@@ -1029,6 +1067,178 @@ def phase_spatial_agreement(torch):
             raise AssertionError(f"{name}: I_t max |d| {err} > {lim}")
 
 
+# narrow lite widths of the gradient check (the port tests' NARROW)
+NARROW = dict(hidden_dims=(8, 16, 16, 32), last_feat_extra=16,
+              global_mlp_hidden=64, refine_hidden=16)
+
+
+def grad_cases(torch):
+    """(wrapper name, wrapper, its plain version, arguments, limit) of
+    every kernel wrapper at a small shape on the card; the floating
+    arguments that require grad are the ones differentiated."""
+    from atmvfi_tpu_torch import ops
+    from atmvfi_tpu_torch.ops import attention as attn_plain
+    from atmvfi_tpu_torch.ops import attention_cuda, conv_cuda, deconv_cuda
+    from atmvfi_tpu_torch.ops import conv as conv_plain
+    from atmvfi_tpu_torch.ops import warp as warp_plain
+    from atmvfi_tpu_torch.ops import warp_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(10)
+
+    def t(*shape, scale=1.0, grad=True, dtype=torch.float32):
+        x = torch.randn(*shape, generator=g, device="cuda") * scale
+        return x.to(dtype).requires_grad_(grad)
+
+    def flow(B, H, W):
+        return edge_flow(torch, g, B, H, W, 3.0).requires_grad_(True)
+
+    def conv1(x, w, b, a, stride=1):
+        return conv_plain.conv3x3([x], w, b, a, stride)
+
+    rel = ops.relative_coords(8, "cuda")
+    mask = ops.attn_mask_for(16, 16, 8, 4, "cuda")  # 4 windows, shifted
+    C, h = 64, 8
+    bf16 = torch.bfloat16
+    return [
+        ("flow_warp", warp_cuda.flow_warp, warp_plain.flow_warp,
+         (t(1, 16, 24, 40), flow(1, 16, 24)), 1e-5),
+        ("flow_warp_pair", warp_cuda.flow_warp_pair,
+         lambda a, b, f0, f1: (warp_plain.flow_warp(a, f0),
+                               warp_plain.flow_warp(b, f1)),
+         (t(1, 16, 24, 3), t(1, 16, 24, 3), flow(1, 16, 24),
+          flow(1, 16, 24)), 1e-5),
+        ("flow_warp_blend", warp_cuda.flow_warp_blend,
+         warp_plain.flow_warp_blend,
+         (t(1, 16, 24, 3), t(1, 16, 24, 3), flow(1, 16, 24),
+          flow(1, 16, 24), torch.rand(1, 16, 24, 1, generator=g,
+                                      device="cuda").requires_grad_(True)),
+         1e-5),
+        ("warp_pair_srcfull", warp_cuda.warp_pair_srcfull,
+         warp_plain.warp_pair_srcfull,
+         (t(1, 32, 24, 3), t(1, 32, 24, 3), flow(1, 12, 24),
+          flow(1, 12, 24), 10), 1e-5),
+        ("flow_warp_rows", warp_cuda.flow_warp_rows,
+         warp_plain.flow_warp_rows,
+         (t(2, 20, 24, 16), flow(2, 8, 24), 5), 1e-5),
+        ("conv3x3", conv_cuda.conv3x3, conv1,
+         (t(1, 12, 20, 24), t(16, 24, 3, 3, scale=0.1), t(16, scale=0.1),
+          t(16, scale=0.3)), 1e-5),
+        # the wgmma route: bf16 (plain VJP in bf16; one bf16 step)
+        ("conv3x3 (wgmma, bf16)", conv_cuda.conv3x3, conv1,
+         (t(1, 16, 32, 64, dtype=bf16), t(72, 64, 3, 3, scale=0.05),
+          t(72, scale=0.1), t(72, scale=0.3)), 1e-2),
+        ("conv3x3_s2", conv_cuda.conv3x3_s2,
+         lambda x, w, b, a: conv1(x, w, b, a, 2),
+         (t(1, 12, 20, 24), t(16, 24, 3, 3, scale=0.1), t(16, scale=0.1),
+          t(16, scale=0.3)), 1e-5),
+        ("conv3x3_multi", conv_cuda.conv3x3_multi,
+         lambda s, w, b, a: conv_plain.conv3x3(s, w, b, a, 1),
+         ([t(1, 12, 20, 16), t(1, 12, 20, 3, grad=False)],
+          t(8, 19, 3, 3, scale=0.1), t(8, scale=0.1), t(8, scale=0.3)),
+         1e-5),
+        ("conv3x3_pair", conv_cuda.conv3x3_pair, conv_plain.conv3x3_pair,
+         (t(1, 12, 20, 16), t(16, 16, 3, 3, scale=0.1), t(16, scale=0.1),
+          t(16, scale=0.3), t(8, 16, 3, 3, scale=0.1), t(8, scale=0.1),
+          None), 1e-5),
+        ("deconv2x", deconv_cuda.deconv2x, conv_plain.deconv2x,
+         (t(1, 8, 12, 16), t(16, 8, 2, 2, scale=0.1), t(8, scale=0.1),
+          t(8, scale=0.3)), 1e-5),
+        ("atm_block", attention_cuda.atm_block,
+         attn_plain.atm_block_reference,
+         (t(4, 64, C), t(C, C, scale=0.05), t(2 * C, C, scale=0.05),
+          t(C, C, scale=0.05), t(C, scale=0.05), t(C, scale=0.1) + 1,
+          t(C, scale=0.1), (C // h) ** -0.5, rel, mask, h, True), 1e-5),
+        ("window_attention", attention_cuda.window_attention,
+         attn_plain.window_attention,
+         (t(4, 64, C), t(4, 64, 2 * C), (C // h) ** -0.5, rel, mask, h),
+         1e-5),
+        ("window_attention_heads", attention_cuda.window_attention_heads,
+         attn_plain.window_attention_heads,
+         (t(4, h, 64, 8), t(4, h, 64, 8), t(4, h, 64, 8), 8 ** -0.5, rel,
+          None), 1e-5),
+    ]
+
+
+def phase_gradients(torch):
+    """With grad enabled on the card: every kernel wrapper's output has a
+    grad_fn and its gradients match autograd through its plain version;
+    the narrow lite network's parameter gradients match the CPU port's."""
+    import dataclasses
+
+    from atmvfi_tpu_torch.models import Network, get_config
+    from atmvfi_tpu_torch.ops import conv_cuda
+
+    torch.backends.cudnn.deterministic = True  # repeatable conv VJPs
+    for name, fn, plain, args, lim in grad_cases(torch):
+        leaves = [a for a in args if isinstance(a, torch.Tensor)
+                  and a.requires_grad]
+        leaves += [s for a in args if isinstance(a, list) for s in a
+                   if s.requires_grad]
+
+        def grads(f):
+            outs = f(*args)
+            outs = [o for o in (outs if isinstance(outs, tuple) else (outs,))
+                    if o is not None]
+            g = torch.Generator(device="cuda").manual_seed(11)
+            cts = [torch.randn(o.shape, generator=g, device="cuda")
+                   .to(o.dtype) for o in outs]
+            return outs, torch.autograd.grad(outs, leaves, cts)
+
+        outs, got = grads(fn)
+        _, want = grads(plain)
+        if any(o.grad_fn is None for o in outs):
+            raise AssertionError(f"gradients: {name}: an output has no "
+                                 "grad_fn")
+        err = max((a.float() - b.float()).abs().max().item()
+                  / max(b.float().abs().max().item(), 1e-30)
+                  for a, b in zip(got, want))
+        emit(dict(phase="gradients", wrapper=name, inputs=len(leaves),
+                  max_rel_abs_err=err, tolerance=lim))
+        if not err <= lim:
+            raise AssertionError(f"gradients: {name}: max relative |d| "
+                                 f"{err} > {lim}")
+    torch.backends.cudnn.deterministic = False
+
+    H, W = 64, 96
+    f0, f1 = smooth_frames(torch, 1, H, W, seed=11)[0]
+    ims = [torch.from_numpy(f).float()[None] / 255.0 for f in (f0, f1)]
+    wts = torch.rand(1, H, W, 3, generator=torch.Generator().manual_seed(12))
+    net = Network(dataclasses.replace(get_config("lite"), **NARROW))
+
+    def param_grads(dev):
+        n = net.to(dev)
+        n.zero_grad(set_to_none=True)
+        out = n(*(i.to(dev) for i in ims), global_motion=True)["I_t"]
+        (out * wts.to(dev)).mean().backward()
+        return {k: None if p.grad is None else p.grad.detach().cpu()
+                for k, p in n.named_parameters()}
+
+    cpu = param_grads("cpu")
+    k3 = conv_cuda.conv3x3
+    before = k3.launches
+    gpu = param_grads("cuda")
+    missing = sorted(k for k, v in gpu.items() if v is None)
+    worst, worst_name = 0.0, None
+    for k, v in gpu.items():
+        if v is None or cpu[k] is None:
+            continue
+        e = ((v - cpu[k]).abs().max() / cpu[k].abs().max().clamp_min(1e-30)
+             ).item()
+        if e > worst:
+            worst, worst_name = e, k
+    emit(dict(phase="gradients", model="lite narrow", size=[H, W],
+              dtype="f32", parameters=len(gpu), without_gradient=missing,
+              k3_launches=k3.launches - before,
+              max_rel_abs_err=worst, worst_parameter=worst_name,
+              tolerance=1e-3))
+    if missing or any(v is None for v in cpu.values()):
+        raise AssertionError(f"gradients: parameters without a gradient on "
+                             f"the card: {missing}")
+    if not worst <= 1e-3:
+        raise AssertionError(f"gradients: {worst_name}: max |d| {worst} > "
+                             "1e-3 x max |g|")
+
+
 def kernel_line(results, launches):
     """One entry per kernel wrapper; times are per launch, averaged over
     the cases of one forward weighted by their launches per forward.
@@ -1043,9 +1253,15 @@ def kernel_line(results, launches):
         "flow_warp": ("K2 backward warp, single form",
                       "atmvfi_tpu_torch/csrc/warp.cu",
                       "atmvfi_tpu/ops/warp_pallas.py:291"),
-        "conv3x3": ("K3 conv3x3 + bias + PReLU",
+        "conv3x3": ("K3 conv3x3 + bias + PReLU, mma.sync implicit GEMM "
+                    "(f32, and bf16 below 32 input channels)",
                     "atmvfi_tpu_torch/csrc/conv3x3.cu",
                     "atmvfi_tpu/ops/conv_pallas.py:148"),
+        "conv3x3_wgmma": ("K3 conv3x3 + bias + PReLU, bf16 from 32 input "
+                          "channels: TMA halo tiles, wgmma with A from "
+                          "registers, warp-specialised",
+                          "atmvfi_tpu_torch/csrc/conv3x3_wgmma.cu",
+                          "atmvfi_tpu/ops/conv_pallas.py:148"),
         "conv3x3_s2": ("K4 stride-2 conv3x3 + bias + PReLU",
                        "atmvfi_tpu_torch/csrc/conv3x3.cu",
                        "atmvfi_tpu/ops/conv_pallas.py:792"),
@@ -1082,8 +1298,13 @@ def kernel_line(results, launches):
                            "atmvfi_tpu_torch/csrc/warp.cu",
                            "atmvfi_tpu/ops/warp.py:137"),
     }
+    k3 = results["conv3x3"]
     results = dict(results, k11=results["flow_warp_pair"]
-                   + results["flow_warp"])
+                   + results["flow_warp"],
+                   conv3x3=[r for r in k3 if r["route"] == "igemm"],
+                   conv3x3_wgmma=[r for r in k3 if r["route"] == "wgmma"])
+    launches = dict(launches, conv3x3=launches["conv3x3"]
+                    - launches["conv3x3_wgmma"])
     out = []
     for k, (name, src, rep) in meta.items():
         recs = results[k]
@@ -1117,8 +1338,36 @@ def kernel_line(results, launches):
         if k in ("window_attention", "window_attention_heads",
                  "conv3x3_pair"):
             entry["ms_over_library"] = entry["ms"] / lib
+        if k == "conv3x3_wgmma":
+            entry["igemm_ms"] = avg("igemm_ms")
+            entry["ms_over_igemm"] = entry["ms"] / entry["igemm_ms"]
+            entry.update(wgmma_resources())
         out.append(entry)
     return {"kernels": out}
+
+
+def wgmma_resources() -> dict:
+    """Registers (ptxas) and dynamic shared memory of each column-tile
+    instantiation of K3's wgmma kernel, keyed by BN."""
+    import re
+
+    from atmvfi_tpu_torch.ops import _build
+
+    regs, bn = {}, None
+    for ln in _build.ptxas_log.splitlines():
+        m = re.search(r"Compiling entry function '\S*conv3x3_wgmma_kernelILi"
+                      r"(\d+)E", ln)
+        if m:
+            bn = int(m.group(1))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and bn is not None:
+            regs[bn] = int(m.group(1))
+            bn = None
+    lib = _build.load_library()
+    return {"registers_by_bn": regs,
+            "smem_bytes_by_bn": {b: lib.conv3x3_wgmma_smem_bytes(b)
+                                 for b in (16, 64, 104, 200)}}
 
 
 def main() -> int:
@@ -1152,6 +1401,10 @@ def main() -> int:
         phase_route_kernels(torch)
         emit(dict(route_kernels="done", gpu=nvidia_smi_line()))
         return 0
+    if sys.argv[1:] == ["--gradients"]:
+        phase_gradients(torch)
+        emit(dict(gradients="done", gpu=nvidia_smi_line()))
+        return 0
     if sys.argv[1:] == ["--conv-sites"]:
         sites = {r["site"] + f" ({k})": r["ms"]
                  for k, recs in phase_conv_kernels(torch).items()
@@ -1176,6 +1429,7 @@ def main() -> int:
     for k in ("warp_pair_srcfull", "flow_warp_rows"):  # this path's own
         launches[k] = sum(run[k] for run in spatial)
     phase_spatial_agreement(torch)
+    phase_gradients(torch)
     emit(kernel_line(results, launches))
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
