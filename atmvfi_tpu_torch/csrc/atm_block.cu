@@ -32,34 +32,36 @@
 //
 // Three launches behind one wrapper, intermediates in scratch buffers:
 //   1. LayerNorm + [Wq | Wkv] projection of every token: one GEMM
-//      [BW*N, C] x [C, 3C] whose A-tile loader normalises each row on
-//      the fly (row statistics computed per block) and whose first
-//      column of blocks also stores xn for the residual. The swap is
-//      not applied here: launch 2 reads k and v from the partner
-//      window by index, so the swapped tensor never exists.
+//      [BW*N, C] x [C, 3C] that also stores xn for the residual. bf16
+//      (namespace lg): a LayerNorm pass writes xn, once per row, and the
+//      wgmma GEMM reads xn by TMA.
+//      The swap is not applied here: launch 2 reads k and v from the
+//      partner window by index, so the swapped tensor never exists.
 //   2. attention + motion moment, one block per (window, head), k and
 //      v of the partner window in shared memory: bf16 on the tensor
 //      cores, one warp per 16 query rows (`mma_attn`); f32 with k and v
 //      as f32 (odd row stride), each warp walking query rows with
 //      scalar FMAs (`attn_kernel`).
-//   3. projection GEMM with bias and the residual in its epilogue.
+//   3. projection GEMM with bias and the residual in its epilogue (bf16:
+//      lg's GEMM without LayerNorm).
 // A whole global window in bf16 is 144 x 672 x 2 B = 193 KB, more than
 // a block can hold beside q, k and v, which is why the TPU's one-pass
 // form is split here.
 //
-// Bound: at the 1080p shapes the projections are ~85% of the flops
-// (local/enhance: 2*BW*N*C*4C = 77 GFLOP per call; global 62 GFLOP) on
-// ~0.2 GB of traffic, so every call is bound by operations, the global
-// block and the local block alike. bf16 products run on the tensor
-// cores through WMMA 16x16x16 fragments; f32 runs on the CUDA cores in
-// true f32 (the JAX kernel computes f32 at HIGHEST precision, so TF32
-// would not be the same function). Left for later: wgmma with TMA-fed
-// shared-memory rings, one persistent launch.
+// Bound, bf16 at the 1080p shapes (PERF.md): launch 1 moves x, xn
+// and qkv (local and enhance 0.25 GB, 0.075 ms at 3.35 TB/s, against
+// 57.8 GFLOP, 0.058 ms at 989 TFLOP/s; the global block 46.8 GFLOP is
+// bound by operations, 0.047 ms); launch 3 moves app, xn and y (0.045 /
+// 0.021 ms). The bf16 GEMMs run wgmma with TMA-fed shared-memory tiles
+// (lg); f32 runs on the CUDA cores in true f32 (the JAX kernel computes
+// f32 at HIGHEST precision, so TF32 would not be the same function).
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
+#include <string.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -203,114 +205,444 @@ __global__ void __launch_bounds__(256) gemm_f32_kernel(GemmArgs g) {
   }
 }
 
-// ---- bf16: tensor-core GEMM through WMMA, 128x64 tile, 8 warps -----
-namespace wm {
-constexpr int BM = 128, BN = 64, BK = 32;
-constexpr int LDS = BK + 8;  // bf16 row stride of the A/B tiles
-constexpr int LDC = BN + 4;  // f32 row stride of the epilogue tile
-constexpr int SMEM = BM * LDC * 4;  // epilogue tile; A/B tiles alias it
-static_assert((BM + BN) * LDS * 2 <= SMEM, "tiles must fit the union");
-}  // namespace wm
+// ---- bf16: the two GEMM launches on wgmma with TMA (namespace lg) -----
+// out [M, N] = A [M, K] x W^T, W an nn.Linear weight [N, K] (K-major, as
+// wgmma takes B). Tiles come by TMA from 2-D tensor maps (boxes of 64
+// columns of K, 128-byte swizzled; K past its end, rows past M and
+// columns past N are zero-filled and the k16 slices past K are not
+// issued), one producer thread keeps a ring of stages full (full / empty
+// mbarriers), and two consumer warpgroups issue wgmma m64nBNWk16 with
+// both operands in shared memory and f32 sums in registers.
+//  * gemm_kernel (launch 3, and launch 1 after ln_rows_kernel): one 128 x
+//    BNW tile a block, each stage a k-chunk of A and of W, warpgroup g on
+//    rows 64 g. BNW 128: 99 KB of shared memory and at most 113
+//    registers a thread, so two blocks share an SM and one's epilogue
+//    overlaps the other's products; BNW 224 (N = 2016 and 672, which it
+//    divides; one block an SM) reads 27 % fewer bytes of A and W from L2
+//    an output. Each tile reads its A and W from L2 once: at the local
+//    and global shapes that traffic, ~5-6 TB/s, bounds it.
+//    RESID adds the projection's bias and residual, y = xn + (sum +
+//    bproj) in f32, rounded once; the residual tile comes by TMA while
+//    the products run.
+//  * ln_rows_kernel (launch 1's LayerNorm pass, K <= 1024) keeps the JAX
+//    `_ln` order: f32 mean, then the mean squared deviation (eps 1e-5),
+//    each value (x - mean) * rstd * g + b rounded to bf16 once. (A GEMM
+//    that kept a block's rows of x whole in shared memory and normalised
+//    them in place was no faster at the base shapes; PERF.md.)
+// Epilogue (store_tile): stmatrix writes the rounded sums into padded
+// shared-memory rows, stored from there as 16-byte vectors. (With the
+// fragments shuffled into 16-byte pieces in registers and the residual
+// read by 4-byte loads, the local launch 3 took 0.116 ms; with stmatrix
+// and the residual by TMA, 0.089; PERF.md.)
+namespace lg {
+using namespace hopper;
 
-union Pack8 {  // 8 bf16 values as raw bits, one 16-byte access
-  uint4 u;
-  unsigned short h[8];
+constexpr int BK = 64;          // one 128-byte swizzled row of K
+constexpr int BM = 128;         // gemm_kernel's rows a block
+constexpr int CONSUMERS = 2;    // warpgroups
+constexpr int THREADS = 128 * CONSUMERS + 32;  // + one producer warp
+constexpr int SMEM_MAX = 232448;  // dynamic shared memory of a block
+constexpr int SMEM_HALF = 113 * 1024;  // ... of each of two blocks on an SM
+constexpr int MAX_STAGES = 4;
+constexpr int LN_UNITS = 4;     // ln_rows_kernel: K <= 32 * 8 * 4
+
+struct Args {
+  int M, N, K, nkc;
+  int n_chunks, stages;
+  const bf16* bias;   // RESID: [N]
+  const bf16* resid;  // RESID: [M, N]
+  bf16* out;          // [M, N]
 };
 
-template <int MODE>
-__global__ void __launch_bounds__(256) gemm_bf16_kernel(GemmArgs g) {
-  using namespace nvcuda;
-  using namespace wm;
-  __shared__ __align__(128) unsigned char smem[SMEM];
-  __shared__ float s_mu[BM], s_rs[BM];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + BM * LDS;
-  float* Cs = reinterpret_cast<float*>(smem);
-  const bf16* __restrict__ A = static_cast<const bf16*>(g.A);
-  const bf16* __restrict__ W = static_cast<const bf16*>(g.W);
-  bf16* out = static_cast<bf16*>(g.out);
-  const int tid = threadIdx.x, warp = tid >> 5;
-  const int wr = (warp & 3) * 32, wc = (warp >> 2) * 32;  // warp's tile
-  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
-  const int M = g.M, N = g.Nout, K = g.K;  // K % 8 == 0 (host check)
-  if (MODE == 0) {
-    row_stats<BM>(A, M, K, m0, s_mu, s_rs);
-    __syncthreads();
-  }
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
+// m64nNk16, bf16 x bf16 -> f32, A and B K-major from shared memory
+// (128-byte swizzle descriptors), the sums accumulated into d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
 
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // A tile: BM rows x BK/8 chunks of 8 values (16 bytes)
-    for (int c = tid; c < BM * (BK / 8); c += blockDim.x) {
-      const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-      const int m = m0 + r, k = k0 + kc;
-      Pack8 p;
-      p.u = make_uint4(0, 0, 0, 0);
-      if (m < M && k < K) {
-        p.u = *reinterpret_cast<const uint4*>(A + (int64_t)m * K + k);
-        if (MODE == 0) {
+__device__ __forceinline__ void wgmma_ss_n224(float (&d)[112], uint64_t a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %114, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111"
+      "}, %112, %113, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <int BNW>
+__device__ __forceinline__ void wgmma_ss(float (&d)[BNW / 2], uint64_t a,
+                                         uint64_t b) {
+  if constexpr (BNW == 128) wgmma_ss_n128(d, a, b);
+  else wgmma_ss_n224(d, a, b);
+}
+
+__device__ __forceinline__ float bf_lo(uint32_t w) {
+  return __uint_as_float(w << 16);
+}
+__device__ __forceinline__ float bf_hi(uint32_t w) {
+  return __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t r;  // round to nearest even, hi in the upper half
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// LayerNorm arithmetic on one 16-byte unit of 8 bf16 values.
+__device__ __forceinline__ float sum8(const uint4& u) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  float s = 0.f;
 #pragma unroll
-          for (int i = 0; i < 8; ++i)
-            p.h[i] = __bfloat16_as_ushort(__float2bfloat16_rn(
-                (__bfloat162float(__ushort_as_bfloat16(p.h[i])) - s_mu[r]) *
-                    s_rs[r] * g.ln_g[k + i] + g.ln_b[k + i]));
-          if (blockIdx.y == 0)
-            *reinterpret_cast<uint4*>(static_cast<bf16*>(g.xn_out) +
-                                      (int64_t)m * K + k) = p.u;
-        }
-      }
-      *reinterpret_cast<uint4*>(As + r * LDS + kc) = p.u;
-    }
-    for (int c = tid; c < BN * (BK / 8); c += blockDim.x) {
-      const int r = c / (BK / 8), kc = (c % (BK / 8)) * 8;
-      const int n = n0 + r, k = k0 + kc;
-      uint4 u = make_uint4(0, 0, 0, 0);
-      if (n < N && k < K)
-        u = *reinterpret_cast<const uint4*>(W + (int64_t)n * K + k);
-      *reinterpret_cast<uint4*>(Bs + r * LDS + kc) = u;
-    }
-    __syncthreads();
+  for (int i = 0; i < 4; ++i) s += bf_lo(w[i]) + bf_hi(w[i]);
+  return s;
+}
+__device__ __forceinline__ float sqdev8(const uint4& u, float mu) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  float s = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bfr[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(af[i], As + (wr + 16 * i) * LDS + kk, LDS);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(bfr[j], Bs + (wc + 16 * j) * LDS + kk, LDS);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], af[i], bfr[j], acc[i][j]);
-    }
-    __syncthreads();
+  for (int i = 0; i < 4; ++i) {
+    const float d0 = bf_lo(w[i]) - mu, d1 = bf_hi(w[i]) - mu;
+    s += d0 * d0 + d1 * d1;
   }
+  return s;
+}
+// (x - mu) * rs * g + b for the unit's 8 values; g, b point at its first
+// column (16-byte aligned)
+__device__ __forceinline__ uint4 norm8(const uint4& u, float mu, float rs,
+                                       const float* __restrict__ g,
+                                       const float* __restrict__ b) {
+  const float4 g0 = __ldg(reinterpret_cast<const float4*>(g));
+  const float4 g1 = __ldg(reinterpret_cast<const float4*>(g) + 1);
+  const float4 b0 = __ldg(reinterpret_cast<const float4*>(b));
+  const float4 b1 = __ldg(reinterpret_cast<const float4*>(b) + 1);
+  const float gg[8] = {g0.x, g0.y, g0.z, g0.w, g1.x, g1.y, g1.z, g1.w};
+  const float bb[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+  uint32_t o[4];
 #pragma unroll
-  for (int i = 0; i < 2; ++i)
+  for (int i = 0; i < 4; ++i)
+    o[i] = pack_bf16x2((bf_lo(w[i]) - mu) * rs * gg[2 * i] + bb[2 * i],
+                       (bf_hi(w[i]) - mu) * rs * gg[2 * i + 1] +
+                           bb[2 * i + 1]);
+  return make_uint4(o[0], o[1], o[2], o[3]);
+}
+
+// Launch 1's LayerNorm pass: xn = LN(x) for rows of K bf16, one warp a
+// row, unit j = lane + 32 t of the row in u[t], 16-byte loads and stores
+// (K % 8 == 0, rows 16-byte aligned).
+__global__ void __launch_bounds__(256)
+    ln_rows_kernel(const bf16* __restrict__ x, const float* __restrict__ g,
+                   const float* __restrict__ b, bf16* __restrict__ xn, int M,
+                   int K) {
+  const int row = blockIdx.x * 8 + threadIdx.x / 32, lane = threadIdx.x & 31;
+  if (row >= M) return;
+  const int units = K / 8;
+  const uint4* src = reinterpret_cast<const uint4*>(x + (long long)row * K);
+  uint4* dst = reinterpret_cast<uint4*>(xn + (long long)row * K);
+  uint4 u[LN_UNITS];
+  float s = 0.f;
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wr + 16 * i) * LDC + wc + 16 * j,
-                              acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
-  for (int e = tid; e < BM * BN; e += blockDim.x) {
-    const int r = e / BN, c = e % BN;
-    const int m = m0 + r, n = n0 + c;
-    if (m >= M || n >= N) continue;
-    float v = Cs[r * LDC + c];
-    if (MODE == 1)
-      v = __bfloat162float(
-              static_cast<const bf16*>(g.resid)[(int64_t)m * N + n]) +
-          (v + __bfloat162float(static_cast<const bf16*>(g.bias)[n]));
-    out[(int64_t)m * N + n] = __float2bfloat16_rn(v);
+  for (int t = 0; t < LN_UNITS; ++t) {
+    u[t] = lane + 32 * t < units ? src[lane + 32 * t] : make_uint4(0, 0, 0, 0);
+    s += sum8(u[t]);  // zero units add 0
+  }
+  const float mu = warp_sum(s) / K;
+  float v = 0.f;
+#pragma unroll
+  for (int t = 0; t < LN_UNITS; ++t)
+    if (lane + 32 * t < units) v += sqdev8(u[t], mu);
+  const float rs = 1.0f / sqrtf(warp_sum(v) / K + 1e-5f);
+#pragma unroll
+  for (int t = 0; t < LN_UNITS; ++t) {
+    const int j = lane + 32 * t;
+    if (j < units) dst[j] = norm8(u[t], mu, rs, g + 8 * j, b + 8 * j);
   }
 }
+
+// Epilogue of a warp's 16 x BNW block: sum (lane / 4 + 8 h, 8 j + 2 (lane
+// % 4) + e) is acc[4 j + 2 h + e]. The sums (with RESID + bias and the
+// residual, read from the swizzled tile `rtile` at tile row rrow0 .. and
+// column 0 ..) are rounded to bf16 pairs, written by stmatrix into the
+// warp's staging rows `stg` and stored from there as 16-byte vectors,
+// whole rows at a time, at rows row0 .. and columns col0 ..
+template <int BNW, bool RESID>
+__device__ __forceinline__ void store_tile(const float (&acc)[BNW / 2],
+                                           const Args& a, int row0, int col0,
+                                           int lane, bf16* stg,
+                                           const unsigned char* rtile,
+                                           int rrow0) {
+  constexpr int SROW = BNW + 8;
+  const int q = lane & 3, r = lane >> 2;
+  uint32_t pk[BNW / 8][2];
+#pragma unroll
+  for (int j = 0; j < BNW / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+      if constexpr (RESID) {
+        const int R = rrow0 + r + 8 * h, n = col0 + 8 * j + 2 * q;
+        const uint32_t res = *reinterpret_cast<const uint32_t*>(
+            rtile + (j / 8) * (BM * 128) + R * 128 +
+            (((j % 8) ^ (R & 7)) << 4) + 4 * q);
+        const uint32_t bb =
+            n < a.N ? *reinterpret_cast<const uint32_t*>(a.bias + n) : 0u;
+        v0 = bf_lo(res) + (v0 + bf_lo(bb));
+        v1 = bf_hi(res) + (v1 + bf_hi(bb));
+      }
+      pk[j][h] = pack_bf16x2(v0, v1);
+    }
+  // matrices (j, h = 0), (j, 1), (j + 1, 0), (j + 1, 1); lane i addresses
+  // row i % 8 (+ 8 for odd i / 8) of column group j + i / 16
+  const int lr = (lane & 7) + 8 * ((lane >> 3) & 1), lc = 8 * (lane >> 4);
+  const uint32_t base = smem_u32(stg + lr * SROW + lc);
+#pragma unroll
+  for (int j = 0; j < BNW / 8; j += 2)
+    stsm_x4(base + 16 * j, pk[j][0], pk[j][1], pk[j + 1][0], pk[j + 1][1]);
+  __syncwarp();
+  constexpr int P = BNW / 8;  // 16-byte pieces of a staged row
+#pragma unroll 4
+  for (int i = lane; i < 16 * P; i += 32) {
+    const int rr = i / P, cp = i % P;
+    const int m = row0 + rr, n = col0 + 8 * cp;
+    if (m < a.M && n < a.N)
+      *reinterpret_cast<uint4*>(a.out + (long long)m * a.N + n) =
+          *reinterpret_cast<const uint4*>(stg + rr * SROW + 8 * cp);
+  }
+  __syncwarp();
+}
+
+// One 128 x BNW tile a block (n-chunks fastest, so the blocks sharing an
+// A tile run together); each ring stage holds a 64-column chunk of A and
+// of W. RESID: the residual's 128 x BNW tile comes by TMA (two swizzled
+// [64, 128] boxes) while the products run. The epilogue stages its rows
+// in the ring, whose loads are all consumed by then.
+template <int BNW, bool RESID>
+__global__ void __launch_bounds__(THREADS, BNW > 128 ? 1 : 2)
+    gemm_kernel(const __grid_constant__ CUtensorMap amap,
+                const __grid_constant__ CUtensorMap bmap,
+                const __grid_constant__ CUtensorMap rmap,
+                const __grid_constant__ Args a) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  constexpr int A_BYTES = BM * 128, STAGE = (BM + BNW) * 128;
+  constexpr int R_BOXES = (BNW + 63) / 64;  // [64, 128] boxes of residual
+  constexpr int R_BYTES = RESID ? R_BOXES * BM * 128 : 0;
+  unsigned char* rtile = ring + a.stages * STAGE;
+  uint64_t* full = reinterpret_cast<uint64_t*>(rtile + R_BYTES);
+  uint64_t* empty = full + a.stages;
+  uint64_t* r_full = empty + a.stages;
+  const int nc = blockIdx.x % a.n_chunks;
+  const int m0 = (blockIdx.x / a.n_chunks) * BM, n0 = nc * BNW;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x & 31;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < a.stages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    mbar_init(r_full, 1);
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (warp == 4 * CONSUMERS) {  // producer
+    if (lane == 0)
+      for (int kc = 0; kc < a.nkc; ++kc) {
+        const int s = kc % a.stages;
+        mbar_wait(&empty[s], ((kc / a.stages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], STAGE);
+        tma_load_2d(ring + s * STAGE, &amap, &full[s], kc * BK, m0);
+        tma_load_2d(ring + s * STAGE + A_BYTES, &bmap, &full[s], kc * BK,
+                    n0);
+        if (RESID && kc == 0) {
+          mbar_expect_tx(r_full, R_BYTES);
+          for (int i = 0; i < R_BOXES; ++i)
+            tma_load_2d(rtile + i * BM * 128, &rmap, r_full, n0 + 64 * i,
+                        m0);
+        }
+      }
+    return;
+  }
+
+  const int cg = warp / 4;
+  const int tail = (a.K - (a.nkc - 1) * BK + 15) / 16;  // k16 slices
+  float acc[BNW / 2];
+#pragma unroll
+  for (int i = 0; i < BNW / 2; ++i) acc[i] = 0.0f;
+  int prev = 0;
+  for (int kc = 0; kc < a.nkc; ++kc) {
+    const int s = kc % a.stages;
+    mbar_wait(&full[s], (kc / a.stages) & 1);
+    const uint64_t da = sw128_desc(ring + s * STAGE + cg * 64 * 128);
+    const uint64_t db = sw128_desc(ring + s * STAGE + A_BYTES);
+    const int ks = kc == a.nkc - 1 ? tail : BK / 16;
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < BK / 16; ++k)
+      if (k < ks) wgmma_ss<BNW>(acc, da + 2 * k, db + 2 * k);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous chunk's products are done
+    if (kc > 0 && threadIdx.x % 128 == 0) mbar_arrive(&empty[prev]);
+    prev = s;
+  }
+  wgmma_wait<0>();
+  named_barrier(1, 128 * CONSUMERS);  // both warpgroups are off the ring
+  if (RESID) mbar_wait(r_full, 0);
+  const int rrow0 = 64 * cg + 16 * (warp & 3);
+  store_tile<BNW, RESID>(
+      acc, a, m0 + rrow0, n0, lane,
+      reinterpret_cast<bf16*>(ring) + warp * 16 * (BNW + 8), rtile, rrow0);
+}
+
+// Column tile with the fewest padded columns among cands (ties to the
+// wider).
+template <int NC>
+inline int least_padded(int N, const int (&cands)[NC]) {
+  int best = 0, cost = 1 << 30;
+  for (int bnw : cands) {
+    const int c = (N + bnw - 1) / bnw * bnw;
+    if (c <= cost) {
+      cost = c;
+      best = bnw;
+    }
+  }
+  return best;
+}
+
+// Block shapes; false for a shape the kernels do not take.
+struct Plan {
+  int bnw, stages, smem;
+};
+
+inline bool shape_ok(int N, int K) {
+  return N >= 8 && N % 8 == 0 && K >= 8 && K % 8 == 0;
+}
+
+inline bool plan_stream(int N, int K, bool resid, Plan* p) {
+  if (!shape_ok(N, K)) return false;
+  const int cands[2] = {128, 224};
+  const int bnw = least_padded(N, cands);
+  const int stage = (BM + bnw) * 128;
+  const int fixed = 1024 + (resid ? (bnw + 63) / 64 * BM * 128 : 0) +
+                    (2 * MAX_STAGES + 1) * 8;
+  // two blocks an SM up to 128 columns, one above
+  int stages = ((bnw > 128 ? SMEM_MAX : SMEM_HALF) - fixed) / stage;
+  if (stages > MAX_STAGES) stages = MAX_STAGES;
+  *p = Plan{bnw, stages, fixed + stages * stage};
+  // the epilogue stages 8 warps' rows in the ring
+  return stages >= 2 && stages * stage >= 8 * 16 * (bnw + 8) * 2;
+}
+
+template <typename Kernel, typename... Maps>
+cudaError_t launch(Kernel kernel, int smem, long long blocks,
+                   cudaStream_t st, const Args& a, const Maps&... maps) {
+  if (blocks >= (1LL << 31)) return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<(int)blocks, THREADS, smem, st>>>(maps..., a);
+  return cudaGetLastError();
+}
+
+inline Args args_for(int M, int N, int K, const Plan& pl, void* out) {
+  Args a{};
+  a.M = M;
+  a.N = N;
+  a.K = K;
+  a.nkc = (K + BK - 1) / BK;
+  a.n_chunks = (N + pl.bnw - 1) / pl.bnw;
+  a.stages = pl.stages;
+  a.out = static_cast<bf16*>(out);
+  return a;
+}
+
+// out [M, N] = A [M, K] x W^T (+ bias and resid with RESID) through W's
+// map `wmap` (atm_block_weight_map).
+template <bool RESID>
+cudaError_t gemm(const void* A, const void* wmap, void* out, int M, int N,
+                 int K, const void* bias, const void* resid,
+                 cudaStream_t st) {
+  Plan pl;
+  if (M < 1 || !plan_stream(N, K, RESID, &pl)) return cudaErrorInvalidValue;
+  alignas(64) CUtensorMap amap, bmap, rmap;
+  if (encode_rows(&amap, A, M, K, BM)) return cudaErrorInvalidValue;
+  memcpy(&bmap, wmap, sizeof(bmap));
+  rmap = amap;
+  if (RESID && encode_rows(&rmap, resid, M, N, BM))
+    return cudaErrorInvalidValue;
+  Args a = args_for(M, N, K, pl, out);
+  a.bias = static_cast<const bf16*>(bias);
+  a.resid = static_cast<const bf16*>(resid);
+  const long long blocks = (long long)(M + BM - 1) / BM * a.n_chunks;
+  if (pl.bnw == 224)
+    return launch(gemm_kernel<224, RESID>, pl.smem, blocks, st, a, amap,
+                  bmap, rmap);
+  return launch(gemm_kernel<128, RESID>, pl.smem, blocks, st, a, amap, bmap,
+                rmap);
+}
+
+// Launch 1's LayerNorm pass.
+inline cudaError_t ln_rows(const void* x, const float* g, const float* b,
+                           void* xn, int M, int K, cudaStream_t st) {
+  if (K % 8 || K > 32 * 8 * LN_UNITS) return cudaErrorInvalidValue;
+  ln_rows_kernel<<<(M + 7) / 8, 256, 0, st>>>(
+      static_cast<const bf16*>(x), g, b, static_cast<bf16*>(xn), M, K);
+  return cudaGetLastError();
+}
+
+}  // namespace lg
 
 // ---- attention + motion moment, one block per (window, head) -------
 // Shared by K1 (launch 2 of the block) and the window-attention entry
@@ -872,34 +1204,48 @@ cudaError_t launch_attn(AttnArgs a, int heads, cudaStream_t st) {
   }
 }
 
-template <typename T, int MODE>
-cudaError_t launch_gemm(const GemmArgs& g, cudaStream_t st) {
-  if constexpr (sizeof(T) == 2) {
-    dim3 grid((g.M + wm::BM - 1) / wm::BM, (g.Nout + wm::BN - 1) / wm::BN);
-    gemm_bf16_kernel<MODE><<<grid, 256, 0, st>>>(g);
-  } else {
-    dim3 grid((g.M + 63) / 64, (g.Nout + 63) / 64);
-    gemm_f32_kernel<MODE><<<grid, 256, 0, st>>>(g);
-  }
+template <int MODE>
+cudaError_t launch_gemm_f32(const GemmArgs& g, cudaStream_t st) {
+  dim3 grid((g.M + 63) / 64, (g.Nout + 63) / 64);
+  gemm_f32_kernel<MODE><<<grid, 256, 0, st>>>(g);
   return cudaGetLastError();
 }
 
+// only: 0 runs the three launches; 1, 2 or 3 that launch alone (to time
+// them apart, on scratch a whole call has filled). wmaps: bf16 only,
+// 2 x 128 bytes of host memory from atm_block_weight_map, wqkv's map and
+// then wproj's. bf16 takes C <= 1024 (ln_rows_kernel).
 template <typename T>
-int atm_block(const void* x, const void* wqkv, const void* wproj,
-              const void* bproj, const void* ln_g, const void* ln_b,
-              const void* rel, const void* mask, int mask_windows, void* xn,
-              void* qkv, void* app, void* y, void* motion, int BW, int N,
-              int C, int heads, int swap, float scale, void* stream) {
+int atm_block(int only, const void* x, const void* wqkv,
+              const void* wproj, const void* bproj, const void* wmaps,
+              const void* ln_g, const void* ln_b, const void* rel,
+              const void* mask, int mask_windows, void* xn, void* qkv,
+              void* app, void* y, void* motion, int BW, int N, int C,
+              int heads, int swap, float scale, void* stream) {
   if (BW < 1 || N < 1 || N > 32 * MAX_KEYS || heads < 1 || C % heads ||
       C % 8 || C / heads > 32 * MAX_DIMS || (swap && BW % 2) ||
-      (mask && (mask_windows < 1 || BW % mask_windows)))
+      (mask && (mask_windows < 1 || BW % mask_windows)) ||
+      (sizeof(T) == 2 &&
+       (C > 32 * 8 * lg::LN_UNITS || !wmaps || reinterpret_cast<uintptr_t>(ln_g) % 16 ||
+        reinterpret_cast<uintptr_t>(ln_b) % 16)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int M = BW * N;
-  GemmArgs g1{x, wqkv, qkv, M, 3 * C, C,
-              static_cast<const float*>(ln_g), static_cast<const float*>(ln_b),
-              xn, nullptr, nullptr};
-  cudaError_t err = launch_gemm<T, 0>(g1, st);
+  const float* g = static_cast<const float*>(ln_g);
+  const float* b = static_cast<const float*>(ln_b);
+  const unsigned char* maps = static_cast<const unsigned char*>(wmaps);
+  cudaError_t err = cudaSuccess;
+  if (only == 0 || only == 1) {
+    if constexpr (sizeof(T) == 2) {
+      err = lg::ln_rows(x, g, b, xn, M, C, st);
+      if (err == cudaSuccess)
+        err = lg::gemm<false>(xn, maps, qkv, M, 3 * C, C, nullptr, nullptr,
+                              st);
+    } else {
+      GemmArgs g1{x, wqkv, qkv, M, 3 * C, C, g, b, xn, nullptr, nullptr};
+      err = launch_gemm_f32<0>(g1, st);
+    }
+  }
   if (err != cudaSuccess) return (int)err;
 
   // q, k, v are the three C-wide column blocks of qkv [BW, N, 3C]
@@ -919,11 +1265,20 @@ int atm_block(const void* x, const void* wqkv, const void* wproj,
   a.hd = hd;
   a.swap = swap;
   a.scale = scale;
-  err = launch_attn<T>(a, heads, st);
+  if (only == 0 || only == 2) err = launch_attn<T>(a, heads, st);
   if (err != cudaSuccess) return (int)err;
 
-  GemmArgs g3{app, wproj, y, M, C, C, nullptr, nullptr, nullptr, bproj, xn};
-  return (int)launch_gemm<T, 1>(g3, st);
+  if (only == 0 || only == 3) {
+    if constexpr (sizeof(T) == 2) {
+      err = lg::gemm<true>(app, maps + sizeof(CUtensorMap), y, M, C, C,
+                           bproj, xn, st);
+    } else {
+      GemmArgs g3{app, wproj, y, M, C, C, nullptr, nullptr, nullptr, bproj,
+                  xn};
+      err = launch_gemm_f32<1>(g3, st);
+    }
+  }
+  return (int)err;
 }
 
 // K7 / K8: the attention launch alone on caller-given q, k, v. `strides`
@@ -959,30 +1314,47 @@ int window_attention(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-extern "C" int atm_block_f32(const void* x, const void* wqkv,
-                             const void* wproj, const void* bproj,
-                             const void* ln_g, const void* ln_b,
-                             const void* rel, const void* mask,
-                             int mask_windows, void* xn, void* qkv, void* app,
-                             void* y, void* motion, int BW, int N, int C,
-                             int heads, int swap, float scale, void* stream) {
-  return atm_block<float>(x, wqkv, wproj, bproj, ln_g, ln_b, rel, mask,
-                          mask_windows, xn, qkv, app, y, motion, BW, N, C,
-                          heads, swap, scale, stream);
+// The tensor map of a bf16 weight w [N, K] (nn.Linear layout, K % 8 == 0,
+// 16-byte aligned) for K1's gemm_kernel with those N and K: 128 bytes to
+// map_out. Fails for a shape the kernel does not take.
+extern "C" int atm_block_weight_map(const void* w, int N, int K,
+                                    void* map_out) {
+  lg::Plan pl;
+  if (!lg::plan_stream(N, K, false, &pl) ||
+      reinterpret_cast<uintptr_t>(w) % 16)
+    return (int)cudaErrorInvalidValue;
+  alignas(64) CUtensorMap map;
+  if (hopper::encode_rows(&map, w, N, K, pl.bnw))
+    return (int)cudaErrorInvalidValue;
+  memcpy(map_out, &map, sizeof(map));
+  return 0;
 }
 
-extern "C" int atm_block_bf16(const void* x, const void* wqkv,
-                              const void* wproj, const void* bproj,
-                              const void* ln_g, const void* ln_b,
-                              const void* rel, const void* mask,
-                              int mask_windows, void* xn, void* qkv,
-                              void* app, void* y, void* motion, int BW, int N,
-                              int C, int heads, int swap, float scale,
-                              void* stream) {
-  return atm_block<bf16>(x, wqkv, wproj, bproj, ln_g, ln_b, rel, mask,
-                         mask_windows, xn, qkv, app, y, motion, BW, N, C,
-                         heads, swap, scale, stream);
-}
+#define ATM_BLOCK_ENTRY(NAME, LAUNCH_NAME, T)                                 \
+  extern "C" int NAME(const void* x, const void* wqkv, const void* wproj,     \
+                      const void* bproj, const void* wmaps,                   \
+                      const void* ln_g, const void* ln_b, const void* rel,    \
+                      const void* mask, int mask_windows, void* xn,           \
+                      void* qkv, void* app, void* y, void* motion, int BW,    \
+                      int N, int C, int heads, int swap, float scale,         \
+                      void* stream) {                                         \
+    return atm_block<T>(0, x, wqkv, wproj, bproj, wmaps, ln_g, ln_b, rel,     \
+                        mask, mask_windows, xn, qkv, app, y, motion, BW, N,   \
+                        C, heads, swap, scale, stream);                       \
+  }                                                                           \
+  extern "C" int LAUNCH_NAME(                                                 \
+      int only, const void* x, const void* wqkv, const void* wproj,           \
+      const void* bproj, const void* wmaps, const void* ln_g,                 \
+      const void* ln_b, const void* rel, const void* mask, int mask_windows,  \
+      void* xn, void* qkv, void* app, void* y, void* motion, int BW, int N,   \
+      int C, int heads, int swap, float scale, void* stream) {                \
+    return atm_block<T>(only, x, wqkv, wproj, bproj, wmaps, ln_g, ln_b, rel,  \
+                        mask, mask_windows, xn, qkv, app, y, motion, BW, N,   \
+                        C, heads, swap, scale, stream);                       \
+  }
+
+ATM_BLOCK_ENTRY(atm_block_f32, atm_block_launch_f32, float)
+ATM_BLOCK_ENTRY(atm_block_bf16, atm_block_launch_bf16, bf16)
 
 #define WINDOW_ATTENTION_ENTRY(NAME, T)                                      \
   extern "C" int NAME(const void* q, const void* k, const void* v,          \

@@ -93,9 +93,15 @@ def _declare(lib) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for dt in ("f32", "bf16"):
         fn = getattr(lib, f"atm_block_{dt}")
-        # x, wqkv, wproj, bproj, ln_g, ln_b, rel, mask, mask_windows,
-        # xn, qkv, app, y, motion, BW, N, C, heads, swap, scale, stream
-        fn.argtypes = [P, P, P, P, P, P, P, P, I, P, P, P, P, P,
+        # x, wqkv, wproj, bproj, weight maps (bf16), ln_g, ln_b, rel,
+        # mask, mask_windows, xn, qkv, app, y, motion, BW, N, C, heads,
+        # swap, scale, stream
+        fn.argtypes = [P, P, P, P, P, P, P, P, P, I, P, P, P, P, P,
+                       I, I, I, I, I, F, P]
+        fn.restype = I
+        fn = getattr(lib, f"atm_block_launch_{dt}")
+        # launch (0 all, or 1, 2, 3 alone), then atm_block's arguments
+        fn.argtypes = [I, P, P, P, P, P, P, P, P, P, I, P, P, P, P, P,
                        I, I, I, I, I, F, P]
         fn.restype = I
         fn = getattr(lib, f"window_attention_{dt}")
@@ -145,16 +151,20 @@ def _declare(lib) -> None:
     lib.warp_blend_f32.argtypes = [P, P, P, P, P, P, I, I, I, I,
                                    ctypes.c_int64, P]
     lib.warp_blend_f32.restype = I
-    # packed weight, Kp, Cout, CUtensorMap out (128 bytes), BN out
-    lib.conv3x3_wgmma_weight_map.argtypes = [P, I, I, P,
+    # bf16 weight [N, K], N, K, CUtensorMap out (128 bytes)
+    lib.atm_block_weight_map.argtypes = [P, I, I, P]
+    lib.atm_block_weight_map.restype = I
+    # packed weight, Kp, Cout, stride, CUtensorMap out (128 bytes), BN out
+    lib.conv3x3_wgmma_weight_map.argtypes = [P, I, I, I, P,
                                              ctypes.POINTER(ctypes.c_int)]
     lib.conv3x3_wgmma_weight_map.restype = I
-    # x, pixel stride, B, H, W, Cin, weight map, BN, bias, slope, out,
-    # Cout, out pixel stride, stream
-    lib.conv3x3_wgmma_bf16.argtypes = [P, ctypes.c_int64, I, I, I, I, P, I,
-                                       P, P, P, I, ctypes.c_int64, P]
+    # x, pixel stride, B, H, W, Cin, stride, weight map, BN, bias, slope,
+    # out, Cout, out pixel stride, stream
+    lib.conv3x3_wgmma_bf16.argtypes = [P, ctypes.c_int64, I, I, I, I, I, P,
+                                       I, P, P, P, I, ctypes.c_int64, P]
     lib.conv3x3_wgmma_bf16.restype = I
-    lib.conv3x3_wgmma_smem_bytes.argtypes = [I]
+    # BN, stride
+    lib.conv3x3_wgmma_smem_bytes.argtypes = [I, I]
     lib.conv3x3_wgmma_smem_bytes.restype = I
 
 

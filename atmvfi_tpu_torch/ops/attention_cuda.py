@@ -21,8 +21,13 @@ for CUDA tensors it launches the kernel or raises, differentiably through
 the plain version's VJP when grad is on (`ops._autograd`). `<fn>.calls` counts the calls on any
 device, `<fn>.launches` the calls that launched the kernel.
 
-Weights are cast to x's dtype (f32 or bf16), the LayerNorm parameters,
-`rel` and `mask` to f32. The mask is [M, N, N] with BW % M == 0: the
+K1's bf16 GEMM launches (q/kv after a LayerNorm pass, projection) run
+on wgmma with TMA-fed shared-memory tiles (`csrc/atm_block.cu`,
+namespace lg); the LayerNorm pass takes C <= 1024 (`MAX_BF16_C`).
+Its weights are packed once per weight in x's dtype ([wq | wkv], wproj,
+bproj; `_packs`, with the bf16 packs' tensor maps) and made anew after
+an in-place update; the LayerNorm parameters, `rel` and `mask` are read
+as f32. The mask is [M, N, N] with BW % M == 0: the
 kernel reads mask[w % M], so the per-image window masks are never
 tiled over the batch. Outputs and scratch are allocated here.
 """
@@ -39,10 +44,12 @@ from atmvfi_tpu_torch.ops.attention import (
     window_attention as window_attention_plain,
     window_attention_heads as window_attention_heads_plain,
 )
+from atmvfi_tpu_torch.ops.conv_cuda import cached_pack
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAX_N = 160  # keys per window the kernel holds (5 per lane)
 MAX_HEAD_DIM = 128
+MAX_BF16_C = 1024  # channels of a bf16 block (K1's LayerNorm pass)
 
 
 def _f32(t: Optional[torch.Tensor], dev) -> Optional[torch.Tensor]:
@@ -63,8 +70,49 @@ def _mask_rel(mask, rel, BW: int, N: int, dev):
     return mask_f, mask_windows, rel_f
 
 
-def _launch_block(x, wq, wkv, wproj, bproj, ln_g, ln_b, scale, rel, mask,
-                  num_heads, swap_halves):
+def _packs(wq, wkv, wproj, bproj, dt):
+    """([wq | wkv], wproj, bproj) in the working type, made once per
+    weight (`conv_cuda.cached_pack`: anew after an in-place update of any
+    of them). The enhancement block's wq and wkv are two row blocks of
+    one qkv weight: its pack lives with that weight."""
+    owner = wq if wq._base is None else wq._base
+    wqkv = cached_pack(owner, "qkv", dt, lambda: torch.cat(
+        [wq.detach(), wkv.detach()], 0).to(dt).contiguous(), deps=(wq, wkv))
+    wp = cached_pack(wproj, "proj", dt,
+                     lambda: wproj.detach().to(dt).contiguous())
+    bp = cached_pack(bproj, "bias", dt,
+                     lambda: bproj.detach().to(dt).contiguous())
+    return wqkv, wp, bp
+
+
+def _weight_map(w: torch.Tensor):
+    """(w, the 128-byte tensor map of bf16 w [N, K] for K1's GEMM
+    kernel)."""
+    tmap = ctypes.create_string_buffer(128)
+    with torch.cuda.device(w.device):
+        rc = _build.load_library().atm_block_weight_map(
+            w.data_ptr(), w.shape[0], w.shape[1], tmap)
+    _build.check(rc, f"ATM block weight map for {tuple(w.shape)}")
+    return w, tmap
+
+
+def _weight_maps(wq, wkv, wproj, wqkv, wp):
+    """The tensor maps of the bf16 packs wqkv and wp, back to back (256
+    bytes), each cached with its pack. Raises for a shape the GEMM does
+    not take."""
+    owner = wq if wq._base is None else wq._base
+    maps = [cached_pack(w, kind, torch.bfloat16, make, deps=deps)[1].raw
+            for w, kind, make, deps in (
+                (owner, "qkv map", lambda: _weight_map(wqkv), (wq, wkv)),
+                (wproj, "proj map", lambda: _weight_map(wp), ()))]
+    return ctypes.create_string_buffer(b"".join(maps), 256)
+
+
+def _block_call(x, wq, wkv, wproj, bproj, ln_g, ln_b, scale, rel, mask,
+                num_heads, swap_halves):
+    """(entry arguments but the stream, y, motion, scratch) of one K1
+    call: operands checked, weight packs cached, outputs and scratch
+    (xn, qkv, app) allocated."""
     if x.dtype not in _DTYPES:
         raise TypeError(f"ATM block kernel takes f32/bf16, got {x.dtype}")
     if x.dim() != 3 or not x.is_contiguous():
@@ -72,7 +120,8 @@ def _launch_block(x, wq, wkv, wproj, bproj, ln_g, ln_b, scale, rel, mask,
                          f"got {tuple(x.shape)} strides {x.stride()}")
     BW, N, C = x.shape
     h = num_heads
-    if C % h or C % 8 or C // h > MAX_HEAD_DIM or N > MAX_N:
+    if C % h or C % 8 or C // h > MAX_HEAD_DIM or N > MAX_N or (
+            x.dtype == torch.bfloat16 and C > MAX_BF16_C):
         raise ValueError(f"unsupported block shape N={N} C={C} heads={h}")
     if swap_halves and BW % 2:
         raise ValueError(f"frame swap needs an even window count, got {BW}")
@@ -81,9 +130,9 @@ def _launch_block(x, wq, wkv, wproj, bproj, ln_g, ln_b, scale, rel, mask,
         raise ValueError("weights must be nn.Linear [out, in]: wq [C, C], "
                          "wkv [2C, C], wproj [C, C], bproj [C]")
     dev, dt = x.device, x.dtype
-    wqkv = torch.cat([wq, wkv], 0).to(dt).contiguous()
-    wp = wproj.to(dt).contiguous()
-    bp = bproj.to(dt).contiguous()
+    wqkv, wp, bp = _packs(wq, wkv, wproj, bproj, dt)
+    maps = (_weight_maps(wq, wkv, wproj, wqkv, wp) if dt == torch.bfloat16
+            else None)
     g, b = _f32(ln_g, dev), _f32(ln_b, dev)
     mask_f, mask_windows, rel_f = _mask_rel(mask, rel, BW, N, dev)
     xn = torch.empty_like(x)
@@ -93,16 +142,44 @@ def _launch_block(x, wq, wkv, wproj, bproj, ln_g, ln_b, scale, rel, mask,
     motion = (torch.empty((BW, N, 2 * h), dtype=dt, device=dev)
               if rel_f is not None else None)
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    fn = getattr(_build.load_library(), f"atm_block_{_DTYPES[dt]}")
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(x.data_ptr(), wqkv.data_ptr(), wp.data_ptr(), bp.data_ptr(),
-                g.data_ptr(), b.data_ptr(), ptr(rel_f), ptr(mask_f),
-                mask_windows, xn.data_ptr(), qkv.data_ptr(), app.data_ptr(),
-                y.data_ptr(), ptr(motion), BW, N, C, h, int(swap_halves),
-                float(scale), stream)
+    argv = (x.data_ptr(), wqkv.data_ptr(), wp.data_ptr(), bp.data_ptr(),
+            maps, g.data_ptr(), b.data_ptr(), ptr(rel_f), ptr(mask_f),
+            mask_windows, xn.data_ptr(), qkv.data_ptr(), app.data_ptr(),
+            y.data_ptr(), ptr(motion), BW, N, C, h, int(swap_halves),
+            float(scale))
+    keep = (x, wqkv, wp, bp, maps, g, b, rel_f, mask_f)
+    return argv, y, motion, dict(xn=xn, qkv=qkv, app=app, keep=keep)
+
+
+def _launch_block(*args):
+    argv, y, motion, _ = _block_call(*args)
+    x = args[0]
+    fn = getattr(_build.load_library(), f"atm_block_{_DTYPES[x.dtype]}")
+    with torch.cuda.device(x.device):
+        rc = fn(*argv, torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "ATM block kernel launch")
     return y, motion
+
+
+def block_launches(*args):
+    """K1's launches one at a time, for timing them apart: returns
+    (run, buffers), where run(launch) issues launch 1 (LayerNorm + q/kv
+    GEMM), 2 (attention) or 3 (projection GEMM) alone on the operands and
+    scratch of one call (`atm_block`'s arguments), and buffers holds that
+    scratch (xn, qkv, app) and the outputs (y, motion). A first run(0)
+    fills the scratch."""
+    argv, y, motion, scratch = _block_call(*args)
+    x = args[0]
+    fn = getattr(_build.load_library(),
+                 f"atm_block_launch_{_DTYPES[x.dtype]}")
+
+    def run(launch: int):
+        with torch.cuda.device(x.device):
+            rc = fn(launch, *argv,
+                    torch.cuda.current_stream().cuda_stream)
+        _build.check(rc, f"ATM block launch {launch}")
+
+    return run, dict(scratch, y=y, motion=motion)
 
 
 def atm_block(x, wq, wkv, wproj, bproj, ln_g, ln_b, scale: float,

@@ -1,5 +1,5 @@
 """Kernel K3-K5 and K12 wrappers: 3x3 conv + bias (+ PReLU)
-(`csrc/conv3x3.cu`, `csrc/conv_pair.cu`).
+(`csrc/conv3x3_wgmma.cu`, `csrc/conv3x3.cu`, `csrc/conv_pair.cu`).
 
 * `conv3x3` (K3) replaces `atmvfi_tpu/ops/conv_pallas.py::conv3x3_hcw_op`:
   stride 1, 'same' zero padding. A bf16 map of at least 32 channels
@@ -10,7 +10,9 @@
   would be mostly zero fill) run the mma.sync implicit GEMM
   (`csrc/igemm.cuh`). `conv3x3.wgmma_launches` counts the former.
 * `conv3x3_s2` (K4) replaces `conv3x3s2_hcw_op`: stride 2, pad 1, out
-  ceil(H/2) x ceil(W/2).
+  ceil(H/2) x ceil(W/2), routed as K3 onto the same two kernels (the
+  wgmma kernel takes the stride as a template parameter);
+  `conv3x3_s2.wgmma_launches` counts its wgmma launches.
 * `conv3x3_multi` (K5) replaces `conv3x3_hcw_planes_op` and
   `conv3x3_planes_only_op`: the conv over the channel concat of up to
   six sources, which is never built.
@@ -141,16 +143,18 @@ def _describe(sources, dtype):
 _packs = {}  # (id(weight), kind, dtype) -> (weakref, fingerprint, value)
 
 
-def cached_pack(weight: torch.Tensor, kind: str, dtype, make):
+def cached_pack(weight: torch.Tensor, kind: str, dtype, make, deps=()):
     """make() once per (weight, kind, dtype); made anew when the weight
     changes (another data_ptr, an in-place update bumping `_version`,
-    another shape or dtype). An entry dies with its weight."""
+    another shape or dtype) or one of the tensors `deps` the pack is
+    also made from does (data_ptr, `_version`). An entry dies with its
+    weight."""
     try:
-        version = weight._version
+        fp = tuple((t.data_ptr(), t._version, tuple(t.shape), t.dtype)
+                   for t in (weight, *deps))
     except RuntimeError:  # an inference tensor keeps no version: no cache
         return make()
     key = (id(weight), kind, dtype)
-    fp = (weight.data_ptr(), version, tuple(weight.shape), weight.dtype)
     hit = _packs.get(key)
     if hit is not None and hit[0]() is weight and hit[1] == fp:
         return hit[2]
@@ -172,9 +176,9 @@ def _pack3x3(weight: torch.Tensor, cin: int, dtype, dev):
         (3, 3, cout), weight.detach().permute(2, 3, 0, 1), cin, dtype))
 
 
-def _wgmma_weight(weight: torch.Tensor, cin: int, dev):
+def _wgmma_weight(weight: torch.Tensor, cin: int, dev, stride: int):
     """(packed bf16 weight, its 128-byte tensor map, column tile BN) for
-    K3's wgmma kernel, cached with the pack."""
+    the wgmma kernel at `stride`, cached with the pack."""
     w, kp = _pack3x3(weight, cin, torch.bfloat16, dev)
 
     def make():
@@ -183,35 +187,43 @@ def _wgmma_weight(weight: torch.Tensor, cin: int, dev):
         lib = _build.load_library()
         with torch.cuda.device(dev):
             rc = lib.conv3x3_wgmma_weight_map(w.data_ptr(), kp,
-                                              weight.shape[0], tmap,
+                                              weight.shape[0], stride, tmap,
                                               ctypes.byref(bn))
         _build.check(rc, "conv3x3 wgmma weight map")
         return w, tmap, bn.value
 
-    return cached_pack(weight, "3x3 wgmma map", torch.bfloat16, make)
+    return cached_pack(weight, f"3x3 wgmma map s{stride}", torch.bfloat16,
+                       make)
+
+
+# Fewest input channels the wgmma kernel takes at either stride: below
+# them its 64-channel halo rows are mostly zero fill, and the encoder's
+# 24-channel convs ran faster on the implicit GEMM (PERF.md).
+WGMMA_MIN_CHANNELS = 32
 
 
 def _wgmma_eligible(x: torch.Tensor) -> bool:
-    """Whether K3 takes x on its wgmma + TMA kernel: bf16, >= 32
-    channels, pixel stride a multiple of 8, pointer 16-byte aligned (a
-    TMA tensor map needs 16-byte strides and base)."""
-    return (x.dtype == torch.bfloat16 and x.shape[3] >= 32
+    """Whether K3 or K4 takes x on the wgmma + TMA kernel: bf16, at least
+    WGMMA_MIN_CHANNELS channels, pixel stride a multiple of 8, pointer
+    16-byte aligned (a TMA tensor map needs 16-byte strides and base)."""
+    return (x.dtype == torch.bfloat16 and x.shape[3] >= WGMMA_MIN_CHANNELS
             and pixel_stride(x) % 8 == 0 and x.data_ptr() % 16 == 0)
 
 
-def _launch_wgmma(x, weight, bias, slope):
+def _launch_wgmma(x, weight, bias, slope, stride: int = 1):
     dev = x.device
     B, H, W, cin = x.shape
     cout = weight.shape[0]
-    w, tmap, bn = _wgmma_weight(weight, cin, dev)
+    w, tmap, bn = _wgmma_weight(weight, cin, dev, stride)
     b = _vec(bias, cout, "bias", dev)
     a = _vec(slope, cout, "slope", dev)
-    out = empty_nhwc(B, H, W, cout, torch.bfloat16, dev)
+    out = empty_nhwc(B, (H - 1) // stride + 1, (W - 1) // stride + 1, cout,
+                     torch.bfloat16, dev)
     lib = _build.load_library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.conv3x3_wgmma_bf16(
-            x.data_ptr(), pixel_stride(x), B, H, W, cin, tmap, bn,
+            x.data_ptr(), pixel_stride(x), B, H, W, cin, stride, tmap, bn,
             b.data_ptr(), 0 if a is None else a.data_ptr(), out.data_ptr(),
             cout, out.stride(2), stream)
     _build.check(rc, "conv3x3 wgmma kernel launch")
@@ -252,28 +264,33 @@ def _run(fn, entry: str, sources, weight, bias, slope, stride, dtype):
     return out
 
 
-def _conv3x3_plain1(x, weight, bias, slope):
-    return conv3x3_plain([x], weight, bias, slope, 1, x.dtype)
+def _conv3x3_plain1(x, weight, bias, slope, stride=1):
+    return conv3x3_plain([x], weight, bias, slope, stride, x.dtype)
+
+
+def _run_single(fn, entry: str, x, weight, bias, slope, stride: int):
+    """K3 / K4: the wgmma kernel where it takes x on the card, else the
+    implicit GEMM (or the plain version on the CPU)."""
+    if x.device.type != "cuda" or not _wgmma_eligible(x):
+        return _run(fn, entry, [x], weight, bias, slope, stride, x.dtype)
+    fn.calls += 1
+    out = _autograd.launch(_launch_wgmma, _conv3x3_plain1, x, weight, bias,
+                           slope, stride)
+    fn.launches += 1
+    fn.wgmma_launches += 1
+    return out
 
 
 def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             slope: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K3: stride-1 3x3 conv + bias (+ PReLU) in x's type."""
-    if x.device.type != "cuda" or not _wgmma_eligible(x):
-        return _run(conv3x3, "conv3x3", [x], weight, bias, slope, 1, x.dtype)
-    conv3x3.calls += 1
-    out = _autograd.launch(_launch_wgmma, _conv3x3_plain1, x, weight, bias,
-                           slope)
-    conv3x3.launches += 1
-    conv3x3.wgmma_launches += 1
-    return out
+    return _run_single(conv3x3, "conv3x3", x, weight, bias, slope, 1)
 
 
 def conv3x3_s2(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                slope: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K4: stride-2 3x3 conv + bias (+ PReLU) in x's type."""
-    return _run(conv3x3_s2, "conv3x3s2", [x], weight, bias, slope, 2,
-                x.dtype)
+    return _run_single(conv3x3_s2, "conv3x3s2", x, weight, bias, slope, 2)
 
 
 def conv3x3_multi(sources: Sequence[torch.Tensor], weight: torch.Tensor,
@@ -331,4 +348,5 @@ def conv3x3_pair(x: torch.Tensor, wa: torch.Tensor, ba: torch.Tensor,
 for _fn in (conv3x3, conv3x3_s2, conv3x3_multi, conv3x3_pair):
     _fn.calls = 0
     _fn.launches = 0
-conv3x3.wgmma_launches = 0
+for _fn in (conv3x3, conv3x3_s2):
+    _fn.wgmma_launches = 0  # K3 / K4 launches on the wgmma kernel

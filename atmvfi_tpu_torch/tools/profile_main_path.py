@@ -34,8 +34,8 @@ STAGES = ("encoder", "global_motion", "prealign", "local_motion", "enhance",
 FAMILIES = (  # first match wins
     ("K12 conv pair", r"pair_bf16_kernel|pair_f32_kernel"),
     ("K3-K6 conv kernels", r"igemm_|conv3x3_wgmma_kernel"),
-    ("K1 / K7 attention", r"gemm_bf16_kernel|gemm_f32_kernel|"
-                          r"attn_(mma_)?kernel"),
+    ("K1 GEMM launches", r"::lg::|gemm_f32_kernel"),
+    ("K1 / K7 attention launch", r"attn_(mma_)?kernel"),
     ("K2 / K9 / K10 warp", r"warp_narrow_kernel|warp_wide_kernel|"
                            r"warp_blend_kernel"),
     ("conv (cuDNN)", r"conv|cudnn|fprop|dgrad|wgrad|implicit|nchw|nhwc"),

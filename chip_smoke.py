@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch/CUDA port (`atmvfi_tpu_torch`) on one GPU.
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --conv-sites   # the build and phase 3 alone
+    python3 chip_smoke.py --k1-launches   # the build and phase 3's K1
+    python3 chip_smoke.py --conv-sites   # the build and phase 3's convs
     python3 chip_smoke.py --route-kernels   # the build and phase 4 alone
     python3 chip_smoke.py --gradients   # the build and phase 10 alone
 
@@ -18,10 +19,14 @@ Phases, one JSON object per line:
      the library call that computes the same function (F.grid_sample
      for the warp; for the conv kernels K3-K6 the cuDNN conv + bias +
      F.prelu that they replace), at every distinct conv site. A bf16 K3
-     site runs the wgmma + TMA kernel where it takes the map (>= 32
-     channels), and is also timed on the mma.sync implicit GEMM
-     (`conv3x3_multi` with one source: the same `launch_igemm` K3 ran
-     before; a yardstick, outside the per-forward launch checks).
+     or K4 site runs the wgmma + TMA kernel where it takes the map (>= 32
+     channels), and is also timed on the mma.sync implicit GEMM (K3:
+     `conv3x3_multi` with one source, the same `launch_igemm`; K4 both
+     kernels whichever runs, the wgmma form also checked; yardsticks,
+     outside the per-forward launch checks). K1 at the base local,
+     global and enhancement and the lite local and global shapes; in
+     bf16 its three launches are also timed apart, each beside its bound
+     and a library yardstick.
   4. route kernels: K7 / K8 (window attention + motion, packed and
      head-major; the launch K1 runs too) at the three base window shapes
      and at the lite local and global ones (head dims 28 and 44), f32
@@ -37,8 +42,8 @@ Phases, one JSON object per line:
      (attention_impl="pallas", warp_impl="tiled_blend",
      hcw_fuse_pairs=True) and the fast serving profile (two frames
      each); each run checks the output and the kernel launch counts of
-     every wrapper (set to 0 just before it; the K3 launches on the
-     wgmma kernel among them) and reports ms/frame.
+     every wrapper (set to 0 just before it; the K3 and K4 launches on
+     the wgmma kernel among them) and reports ms/frame.
   6. agreement: seeded f32 models on the card (kernels) against the
      port on the CPU (plain versions) at 256x448: base with global
      motion, lite with and without it, base on the opt-in routes and
@@ -62,8 +67,9 @@ Phases, one JSON object per line:
      spatial on the CPU (<= 1e-3); the ensemble forward on the card
      against the CPU (<= 1e-3).
  10. gradients: every kernel wrapper at a small shape on the card with
-     grad enabled (f32, TF32 off; K3's wgmma route in bf16): its output
-     has a grad_fn and its input and parameter gradients match autograd
+     grad enabled (f32, TF32 off; the wgmma routes of K3, K4 and K1's
+     GEMMs in bf16): its output has a grad_fn and its input and
+     parameter gradients match autograd
      through the plain version (max |d| <= 1e-5 x the gradient's max
      |g|; bf16 1e-2, one bf16 step); then the narrow lite network at
      64x96 f32, loss = weighted mean of I_t: every parameter gets a
@@ -71,8 +77,9 @@ Phases, one JSON object per line:
 Then the {"kernels": [...]} line, the card's name and power limit, and
 the last line {"ok": true, "device": {...}}. With --conv-sites it runs
 only the build and the K3-K6 sites and prints their times as one JSON
-line (to compare two checkouts in one call); with --route-kernels only
-the build and phase 4; with --gradients only the build and phase 10.
+line (to compare two checkouts in one call); with --k1-launches only
+the build and the K1 cases of phase 3; with --route-kernels only the
+build and phase 4; with --gradients only the build and phase 10.
 Any failed phase raises and the script exits non-zero; without a CUDA
 device, or without the repo beside it, it exits non-zero before
 printing any result.
@@ -168,6 +175,16 @@ CONV_SITES = [
 ]
 
 
+def k4_igemm_per_forward() -> int:
+    """K4 launches a forward below the wgmma kernel's channel floor (the
+    encoder's 24 -> 48 conv unless its route changes), which run igemm."""
+    from atmvfi_tpu_torch.ops.conv_cuda import WGMMA_MIN_CHANNELS
+
+    return sum(n for kind, _, shapes, _, _, n in CONV_SITES
+               if kind == "conv3x3_s2"
+               and sum(x[3] for x in shapes) < WGMMA_MIN_CHANNELS)
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
@@ -233,6 +250,7 @@ def block_case(torch, net, which: str, dtype):
     from atmvfi_tpu_torch import ops
 
     c = net.cfg
+    which = which.split()[-1]  # "lite local" is the lite net's local block
     if which == "global":
         blk, h, w = net.global_motion_atmformer[1], 68, 120
     elif which == "local":
@@ -273,8 +291,78 @@ def block_case(torch, net, which: str, dtype):
     return args, info, nbytes, flops
 
 
-def phase_kernels(torch):
-    """Every kernel against its plain version at the main-path shapes."""
+def k1_launches(torch, args) -> dict:
+    """K1's three launches timed apart on one call's operands and scratch
+    (bf16), each beside its bound (its own inputs and outputs, the
+    scratch xn, qkv and app included) and a library yardstick that the
+    port never calls: launch 1 F.layer_norm then F.linear(xn, [Wq |
+    Wkv]); launch 2 scaled_dot_product_attention (out only, no motion,
+    no frame swap); launch 3 F.linear(app, Wproj, bproj) + xn."""
+    import torch.nn.functional as F
+
+    from atmvfi_tpu_torch.ops import attention_cuda
+
+    x, wq, wkv, wp, bp, ln_g, ln_b, scale, rel, mask, h, swap = args
+    BW, N, C = x.shape
+    M, hd, dt, s = BW * N, C // h, x.dtype, x.element_size()
+    run, buf = attention_cuda.block_launches(*args)
+    with torch.no_grad():
+        run(0)
+        wqkv = torch.cat([wq, wkv], 0).to(dt)
+        g_, b_ = ln_g.to(dt), ln_b.to(dt)
+        wp_, bp_ = wp.to(dt), bp.to(dt)
+        qkv, app, xn = buf["qkv"], buf["app"], buf["xn"]
+        heads_of = lambda t: t.reshape(BW, N, h, hd).transpose(1, 2)  # noqa
+        qh, kh, vh = (heads_of(qkv[..., i * C:(i + 1) * C]).contiguous()
+                      for i in range(3))
+        full = (None if mask is None else
+                mask.repeat(BW // mask.shape[0], 1, 1)[:, None].to(dt))
+        libs = [
+            lambda: F.linear(F.layer_norm(x, (C,), g_, b_, 1e-5), wqkv),
+            lambda: F.scaled_dot_product_attention(qh, kh, vh,
+                                                   attn_mask=full,
+                                                   scale=scale),
+            lambda: F.linear(app, wp_, bp_) + xn]
+        lib_err = [(libs[0]().float() - qkv.float()).abs().mean().item(),
+                   None,
+                   (libs[2]().float() - buf["y"].float()).abs().mean()
+                   .item()]
+        ms = [cuda_ms(lambda i=i: run(i), 20) for i in (1, 2, 3)]
+        lib_ms = [cuda_ms(f, 20) for f in libs]
+    mask_b = mask.numel() * 4 if mask is not None else 0
+    motion_b = 2 * N * N * 4 + M * 2 * h * s if rel is not None else 0
+    work = [  # (bytes, flops) of each launch
+        (M * C * s + 3 * C * C * s + 2 * C * 4 + M * C * s + 3 * M * C * s,
+         2 * M * C * 3 * C),
+        (3 * M * C * s + M * C * s + mask_b + motion_b,
+         4 * BW * h * N * N * hd + (4 * BW * h * N * N if rel is not None
+                                    else 0)),
+        (2 * M * C * s + C * C * s + C * s + M * C * s, 2 * M * C * C)]
+    names = ("LayerNorm + q/kv GEMM", "attention + motion",
+             "projection GEMM + bias + residual")
+    library = ("F.layer_norm + F.linear",
+               "scaled_dot_product_attention, out only",
+               "F.linear + add")
+    out = []
+    for i in range(3):
+        b_ms, b_by = bound_ms(*work[i], "bf16")
+        rec = dict(launch=i + 1, name=names[i], ms=ms[i], bound_ms=b_ms,
+                   bound_by=b_by, ms_over_bound=ms[i] / b_ms,
+                   library=library[i], library_ms=lib_ms[i],
+                   ms_over_library=ms[i] / lib_ms[i], bytes=work[i][0],
+                   flops=work[i][1])
+        if lib_err[i] is not None:
+            rec["library_mean_abs_diff"] = lib_err[i]
+        out.append(rec)
+    del qh, kh, vh, full, buf
+    return dict(launches=out, library_ms=sum(lib_ms),
+                library="F.layer_norm + F.linear, scaled_dot_product_"
+                        "attention (out only), F.linear + add")
+
+
+def phase_kernels(torch, k1_only: bool = False):
+    """Every kernel against its plain version at the main-path shapes
+    (with k1_only K1 alone)."""
     import torch.nn.functional as F
 
     from atmvfi_tpu_torch.models import Network, get_config
@@ -283,37 +371,56 @@ def phase_kernels(torch):
     from atmvfi_tpu_torch.ops.warp import flow_warp as warp_plain
 
     results = {"atm_block": [], "flow_warp_pair": [], "flow_warp": []}
-    net = Network(get_config("base")).cuda()
     tol = {torch.float32: ("max", 1e-4), torch.bfloat16: ("mean", 5e-3)}
-    for which, reps in (("local", 10), ("global", 10), ("enhance", 10)):
-        for dtype in (torch.float32, torch.bfloat16):
-            args, info, nbytes, flops = block_case(torch, net, which, dtype)
-            with torch.no_grad():
-                y, m = attention_cuda.atm_block(*args)
-                yr, mr = atm_block_reference(*args)
-                torch.cuda.synchronize()
-                dy = (y.float() - yr.float()).abs()
-                dm = ((m.float() - mr.float()).abs() if m is not None
-                      else torch.zeros(1, device="cuda"))
-                stat, lim = tol[dtype]
-                err = (max(dy.max().item(), dm.max().item()) if stat == "max"
-                       else max(dy.mean().item(), dm.mean().item()))
-                ms = cuda_ms(lambda: attention_cuda.atm_block(*args), reps)
-                plain = cuda_ms(lambda: atm_block_reference(*args), reps)
-            dt = "f32" if dtype == torch.float32 else "bf16"
-            b_ms, b_by = bound_ms(nbytes, flops, dt)
-            rec = dict(phase="kernel", kernel="K1 atm_block", case=which,
-                       dtype=dt, **info, max_abs_err=dy.max().item(),
-                       mean_abs_err=dy.mean().item(),
-                       motion_max_abs_err=dm.max().item(), ms=ms,
-                       plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                       flops=flops, bytes=nbytes)
-            emit(rec)
-            if not err <= lim:
-                raise AssertionError(f"K1 {which} {dt}: {stat} |d| {err} "
-                                     f"> {lim}")
-            results["atm_block"].append(rec)
-    del net
+    for model in ("base", "lite"):
+        net = Network(get_config(model)).cuda()
+        cases = (("local", "global", "enhance") if model == "base"
+                 else ("lite local", "lite global"))
+        for which in cases:
+            for dtype in (torch.float32, torch.bfloat16):
+                args, info, nbytes, flops = block_case(torch, net, which,
+                                                       dtype)
+                with torch.no_grad():
+                    y, m = attention_cuda.atm_block(*args)
+                    yr, mr = atm_block_reference(*args)
+                    torch.cuda.synchronize()
+                    dy = (y.float() - yr.float()).abs()
+                    dm = ((m.float() - mr.float()).abs() if m is not None
+                          else torch.zeros(1, device="cuda"))
+                    stat, lim = tol[dtype]
+                    err = (max(dy.max().item(), dm.max().item())
+                           if stat == "max"
+                           else max(dy.mean().item(), dm.mean().item()))
+                    repeat_equal = all(
+                        torch.equal(y, attention_cuda.atm_block(*args)[0])
+                        for _ in range(5))
+                    ms = cuda_ms(lambda: attention_cuda.atm_block(*args), 10)
+                    plain = cuda_ms(lambda: atm_block_reference(*args), 10)
+                dt = "f32" if dtype == torch.float32 else "bf16"
+                b_ms, b_by = bound_ms(nbytes, flops, dt)
+                rec = dict(phase="kernel", kernel="K1 atm_block", case=which,
+                           dtype=dt, **info, max_abs_err=dy.max().item(),
+                           mean_abs_err=dy.mean().item(),
+                           motion_max_abs_err=dm.max().item(),
+                           motion_mean_abs_err=dm.mean().item(),
+                           repeat_equal=repeat_equal, ms=ms,
+                           plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
+                           flops=flops, bytes=nbytes)
+                if dtype == torch.bfloat16:
+                    rec.update(k1_launches(torch, args))
+                emit(rec)
+                if not err <= lim:
+                    raise AssertionError(f"K1 {which} {dt}: {stat} |d| {err} "
+                                         f"> {lim}")
+                if not repeat_equal:
+                    raise AssertionError(f"K1 {which} {dt}: a repeated call "
+                                         "differs")
+                results["atm_block"].append(rec)
+                del y, yr, m, mr, dy, dm, args
+        del net
+        torch.cuda.empty_cache()
+    if k1_only:
+        return results
 
     g = torch.Generator(device="cuda").manual_seed(2)
 
@@ -419,7 +526,8 @@ def phase_conv_kernels(torch):
                 return x.to(dt)
             return empty_nhwc(*x.shape, dt, "cuda").copy_(x)
 
-        wgmma0 = conv_cuda.conv3x3.wgmma_launches
+        wgmma0 = getattr(kernels[kind], "wgmma_launches", 0)
+        repeat_equal = None
         for dt in (torch.float32, bf16):
             srcs = [x if s[4] else layout(x, dt) for x, s in zip(base, shapes)]
             if deconv:
@@ -438,6 +546,13 @@ def phase_conv_kernels(torch):
             err[dt] = (d.max().item(), d.mean().item())
             if y.dtype != dt or not bool(torch.isfinite(y).all()):
                 raise AssertionError(f"{kind} {site}: bad output {y.dtype}")
+            if dt == bf16:  # no atomics: a second launch is bit-equal
+                with torch.no_grad():
+                    repeat_equal = all(torch.equal(y, run())
+                                       for _ in range(5))
+                if not repeat_equal:
+                    raise AssertionError(f"{kind} {site}: a repeated "
+                                         "launch differs")
             del y, yr, d
         dense = [x if s[4] else x.to(bf16) for x, s in zip(base, shapes)]
 
@@ -452,8 +567,8 @@ def phase_conv_kernels(torch):
                 y = F.conv2d(x, w.to(bf16), b.to(bf16), stride, 1)
             return y if a is None else F.prelu(y, a.to(bf16))
 
-        route = ("wgmma" if conv_cuda.conv3x3.wgmma_launches > wgmma0
-                 else "igemm")
+        route = ("wgmma" if getattr(kernels[kind], "wgmma_launches", 0)
+                 > wgmma0 else "igemm")
         big = B * H * W >= 500_000
         reps = 5 if big else 20
         extra = {}
@@ -463,6 +578,21 @@ def phase_conv_kernels(torch):
             if kind == "conv3x3":  # K3 as PR 5 ran it: launch_igemm
                 extra = dict(route=route, igemm_ms=cuda_ms(
                     lambda: conv_cuda.conv3x3_multi(srcs, w, b, a), reps))
+            if kind == "conv3x3_s2":  # K4 on both kernels, whichever runs
+                igemm = lambda: conv_cuda._launch(  # noqa: E731
+                    "conv3x3s2", srcs, w, b, a, 2, bf16)
+                wg = lambda: conv_cuda._launch_wgmma(  # noqa: E731
+                    srcs[0], w, b, a, 2)
+                yw = wg()
+                yr = plain.conv3x3(srcs, w, b, a, 2)
+                wg_err = (yw.float() - yr.float()).abs().mean().item()
+                extra = dict(route=route, igemm_ms=cuda_ms(igemm, reps),
+                             wgmma_ms=cuda_ms(wg, reps),
+                             wgmma_bf16_mean_abs_err=wg_err)
+                del yw, yr
+                if not wg_err <= 1e-3:
+                    raise AssertionError(f"K4 {site} on wgmma: bf16 mean "
+                                         f"|d| {wg_err} > 1e-3")
         out_px = (4 * B * H * W if deconv
                   else B * (-(-H // stride)) * (-(-W // stride)))
         nbytes = (sum(x.numel() * x.element_size() for x in srcs)
@@ -475,7 +605,8 @@ def phase_conv_kernels(torch):
         rec = dict(phase="kernel", kernel=kind, site=site,
                    sources=[list(s[:4]) + ["f32" if s[4] else "work"]
                             for s in shapes], cout=cout, prelu=bool(prelu),
-                   per_forward=n, f32_max_abs_err=f_max,
+                   per_forward=n, repeat_equal=repeat_equal,
+                   f32_max_abs_err=f_max,
                    bf16_mean_abs_err=h_mean, bf16_max_abs_err=h_max,
                    max_abs_err=max(f_max, h_max), ms=ms, plain_ms=plain_ms,
                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
@@ -485,9 +616,9 @@ def phase_conv_kernels(torch):
             raise AssertionError(f"{kind} {site}: f32 max |d| {f_max} "
                                  f"(<= 1e-4), bf16 mean |d| {h_mean} "
                                  "(<= 1e-3)")
-        want = "igemm" if cin < 32 else "wgmma"
-        if kind == "conv3x3" and route != want:
-            raise AssertionError(f"K3 {site}: bf16 ran on {route}")
+        want = "igemm" if cin < conv_cuda.WGMMA_MIN_CHANNELS else "wgmma"
+        if kind in ("conv3x3", "conv3x3_s2") and route != want:
+            raise AssertionError(f"{kind} {site}: bf16 ran on {route}")
         results[kind].append(rec)
         del srcs, base, dense
         torch.cuda.empty_cache()
@@ -760,21 +891,24 @@ def phase_main_path(torch, name: str, routes: dict, fast: bool,
     pairs = smooth_frames(torch, frames + 1, 1080, 1920, seed=3)
     pipe.interpolate(*pairs[0])  # warm-up: cuDNN plans, masks
     torch.cuda.synchronize()
-    k3 = counters["conv3x3"]
+    k3, k4 = counters["conv3x3"], counters["conv3x3_s2"]
     for fn in counters.values():
         fn.launches = 0
-    k3.wgmma_launches = 0
+    k3.wgmma_launches = k4.wgmma_launches = 0
     t0 = time.perf_counter()
     outs = [pipe.interpolate(f0, f1) for f0, f1 in pairs[1:]]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
     launches["conv3x3_wgmma"] = k3.wgmma_launches
+    launches["conv3x3_s2_wgmma"] = k4.wgmma_launches
     n = len(outs)
     for o in outs:
         if o.shape != (1080, 1920, 3) or o.dtype.name != "uint8":
             raise AssertionError(f"bad output {o.shape} {o.dtype}")
-    per_forward = dict(per_forward, conv3x3_wgmma=WGMMA_PER_FORWARD[name])
+    per_forward = dict(per_forward, conv3x3_wgmma=WGMMA_PER_FORWARD[name],
+                       conv3x3_s2_wgmma=per_forward["conv3x3_s2"]
+                       - k4_igemm_per_forward())
     for k in launches:
         if launches[k] != per_forward.get(k, 0) * n:
             raise AssertionError(f"{name}: {k}: {launches[k]} launches in "
@@ -835,9 +969,11 @@ def spatial_per_frame(n: int) -> dict:
     3, K3 6), the scale-0 pre-align and blend (K10 2) and the refinement
     (K5 1, K4 3, K3 7, K6 3); once on the card, the replicated global
     branch (K1 2, K3 2). All K3 launches but each shard's encoder 24->24
-    run the wgmma kernel."""
+    run the wgmma kernel, and all K4 launches but those below its
+    channel floor (k4_igemm_per_forward)."""
     return {"atm_block": 4 * n + 2, "conv3x3": 20 * n + 2,
             "conv3x3_wgmma": 19 * n + 2, "conv3x3_s2": 7 * n,
+            "conv3x3_s2_wgmma": (7 - k4_igemm_per_forward()) * n,
             "conv3x3_multi": 2 * n, "deconv2x": 6 * n,
             "flow_warp_rows": 4 * n, "warp_pair_srcfull": 2 * n}
 
@@ -988,16 +1124,17 @@ def phase_spatial_main_path(torch, n: int, frames: int = 2):
     pairs = smooth_frames(torch, frames + 1, 1080, 1920, seed=7)
     pipe.interpolate(*pairs[0])  # warm-up
     torch.cuda.synchronize()
-    k3 = counters["conv3x3"]
+    k3, k4 = counters["conv3x3"], counters["conv3x3_s2"]
     for fn in counters.values():
         fn.launches = 0
-    k3.wgmma_launches = 0
+    k3.wgmma_launches = k4.wgmma_launches = 0
     t0 = time.perf_counter()
     outs = [pipe.interpolate(f0, f1) for f0, f1 in pairs[1:]]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
     launches["conv3x3_wgmma"] = k3.wgmma_launches
+    launches["conv3x3_s2_wgmma"] = k4.wgmma_launches
     per_frame = spatial_per_frame(n)
     for o in outs:
         if o.shape != (1080, 1920, 3) or o.dtype.name != "uint8":
@@ -1131,6 +1268,10 @@ def grad_cases(torch):
          lambda x, w, b, a: conv1(x, w, b, a, 2),
          (t(1, 12, 20, 24), t(16, 24, 3, 3, scale=0.1), t(16, scale=0.1),
           t(16, scale=0.3)), 1e-5),
+        ("conv3x3_s2 (wgmma, bf16)", conv_cuda.conv3x3_s2,
+         lambda x, w, b, a: conv1(x, w, b, a, 2),
+         (t(1, 16, 32, 64, dtype=bf16), t(72, 64, 3, 3, scale=0.05),
+          t(72, scale=0.1), t(72, scale=0.3)), 1e-2),
         ("conv3x3_multi", conv_cuda.conv3x3_multi,
          lambda s, w, b, a: conv_plain.conv3x3(s, w, b, a, 1),
          ([t(1, 12, 20, 16), t(1, 12, 20, 3, grad=False)],
@@ -1148,6 +1289,13 @@ def grad_cases(torch):
          (t(4, 64, C), t(C, C, scale=0.05), t(2 * C, C, scale=0.05),
           t(C, C, scale=0.05), t(C, scale=0.05), t(C, scale=0.1) + 1,
           t(C, scale=0.1), (C // h) ** -0.5, rel, mask, h, True), 1e-5),
+        # the wgmma GEMM launches: bf16
+        ("atm_block (wgmma, bf16)", attention_cuda.atm_block,
+         attn_plain.atm_block_reference,
+         (t(4, 64, C, dtype=bf16), t(C, C, scale=0.05),
+          t(2 * C, C, scale=0.05), t(C, C, scale=0.05), t(C, scale=0.05),
+          t(C, scale=0.1) + 1, t(C, scale=0.1), (C // h) ** -0.5, rel, mask,
+          h, True), 1e-2),
         ("window_attention", attention_cuda.window_attention,
          attn_plain.window_attention,
          (t(4, 64, C), t(4, 64, 2 * C), (C // h) ** -0.5, rel, mask, h),
@@ -1245,7 +1393,9 @@ def kernel_line(results, launches):
     `launches` holds each wrapper's count from the run of the path it is
     on, and "k11" the K2 launches of the fast profile's run."""
     meta = {
-        "atm_block": ("K1 fused ATM block", "atmvfi_tpu_torch/csrc/atm_block.cu",
+        "atm_block": ("K1 fused ATM block (bf16 LayerNorm + q/kv and "
+                      "projection GEMMs on wgmma + TMA, attention on "
+                      "mma.sync)", "atmvfi_tpu_torch/csrc/atm_block.cu",
                       "atmvfi_tpu/ops/attention_pallas.py:435"),
         "flow_warp_pair": ("K2 backward warp, pair form",
                            "atmvfi_tpu_torch/csrc/warp.cu",
@@ -1262,8 +1412,14 @@ def kernel_line(results, launches):
                           "registers, warp-specialised",
                           "atmvfi_tpu_torch/csrc/conv3x3_wgmma.cu",
                           "atmvfi_tpu/ops/conv_pallas.py:148"),
-        "conv3x3_s2": ("K4 stride-2 conv3x3 + bias + PReLU",
-                       "atmvfi_tpu_torch/csrc/conv3x3.cu",
+        "conv3x3_s2_wgmma": ("K4 stride-2 conv3x3 + bias + PReLU, bf16 from "
+                             "32 input channels: K3's wgmma kernel, 17 x "
+                             "33 TMA halo",
+                             "atmvfi_tpu_torch/csrc/conv3x3_wgmma.cu",
+                             "atmvfi_tpu/ops/conv_pallas.py:792"),
+        "conv3x3_s2": ("K4 stride-2 conv3x3 + bias + PReLU, mma.sync "
+                       "implicit GEMM (f32, and bf16 below 32 input "
+                       "channels)", "atmvfi_tpu_torch/csrc/conv3x3.cu",
                        "atmvfi_tpu/ops/conv_pallas.py:792"),
         "conv3x3_multi": ("K5 multi-source conv3x3 + bias + PReLU",
                           "atmvfi_tpu_torch/csrc/conv3x3.cu",
@@ -1298,16 +1454,27 @@ def kernel_line(results, launches):
                            "atmvfi_tpu_torch/csrc/warp.cu",
                            "atmvfi_tpu/ops/warp.py:137"),
     }
-    k3 = results["conv3x3"]
+    # K3's and K4's sites split by the route they take (the channel floor)
+    route_splits = ("conv3x3", "conv3x3_wgmma", "conv3x3_s2",
+                    "conv3x3_s2_wgmma")
+    k3, k4 = results["conv3x3"], results["conv3x3_s2"]
     results = dict(results, k11=results["flow_warp_pair"]
                    + results["flow_warp"],
                    conv3x3=[r for r in k3 if r["route"] == "igemm"],
-                   conv3x3_wgmma=[r for r in k3 if r["route"] == "wgmma"])
+                   conv3x3_wgmma=[r for r in k3 if r["route"] == "wgmma"],
+                   conv3x3_s2=[r for r in k4 if r["route"] == "igemm"],
+                   conv3x3_s2_wgmma=[r for r in k4 if r["route"] == "wgmma"])
     launches = dict(launches, conv3x3=launches["conv3x3"]
-                    - launches["conv3x3_wgmma"])
+                    - launches["conv3x3_wgmma"],
+                    conv3x3_s2=launches["conv3x3_s2"]
+                    - launches["conv3x3_s2_wgmma"])
     out = []
     for k, (name, src, rep) in meta.items():
         recs = results[k]
+        if not recs and k in route_splits:
+            continue  # a conv kernel's route that no site takes
+        if not any(r.get("per_forward", 1) for r in recs):
+            raise AssertionError(f"{k}: no record of a launch on the path")
         base = [r for r in recs if r.get("dtype") == "bf16"
                 and not r.get("case", "").startswith("lite")]
         if k in ("atm_block", "window_attention"):
@@ -1338,36 +1505,59 @@ def kernel_line(results, launches):
         if k in ("window_attention", "window_attention_heads",
                  "conv3x3_pair"):
             entry["ms_over_library"] = entry["ms"] / lib
-        if k == "conv3x3_wgmma":
+        if k in ("conv3x3_wgmma", "conv3x3_s2_wgmma"):
             entry["igemm_ms"] = avg("igemm_ms")
             entry["ms_over_igemm"] = entry["ms"] / entry["igemm_ms"]
             entry.update(wgmma_resources())
+        if k == "atm_block":  # the three launches apart, base bf16
+            entry["launch_ms"] = [
+                sum(r["launches"][i]["ms"] * w for r, w in used) / n
+                for i in range(3)]
+            entry["launch_bound_ms"] = [
+                sum(r["launches"][i]["bound_ms"] * w for r, w in used) / n
+                for i in range(3)]
+            entry["launch_library_ms"] = [
+                sum(r["launches"][i]["library_ms"] * w for r, w in used) / n
+                for i in range(3)]
+            entry["gemm_registers"] = ptxas_registers(
+                r"gemm_kernelILi(\d+)ELb(\d)E", "gemm_kernel BNW {} RESID {}")
         out.append(entry)
     return {"kernels": out}
 
 
 def wgmma_resources() -> dict:
-    """Registers (ptxas) and dynamic shared memory of each column-tile
-    instantiation of K3's wgmma kernel, keyed by BN."""
+    """Registers (ptxas) and dynamic shared memory of each (column tile,
+    stride) instantiation of the K3 / K4 wgmma kernel."""
+    from atmvfi_tpu_torch.ops import _build
+
+    lib = _build.load_library()
+    return {"registers_by_bn": ptxas_registers(
+                r"conv3x3_wgmma_kernelILi(\d+)ELi(\d+)E", "BN {} stride {}"),
+            "smem_bytes_by_bn": {f"BN {b} stride {st}":
+                                 lib.conv3x3_wgmma_smem_bytes(b, st)
+                                 for b in (16, 64, 104, 128, 200, 256)
+                                 for st in (1, 2)
+                                 if lib.conv3x3_wgmma_smem_bytes(b, st)}}
+
+
+def ptxas_registers(pattern: str, key: str) -> dict:
+    """Registers (ptxas) of each instantiation of a kernel: the entry
+    names matching `pattern`, keyed by `key` formatted with its groups."""
     import re
 
     from atmvfi_tpu_torch.ops import _build
 
-    regs, bn = {}, None
+    regs, name = {}, None
     for ln in _build.ptxas_log.splitlines():
-        m = re.search(r"Compiling entry function '\S*conv3x3_wgmma_kernelILi"
-                      r"(\d+)E", ln)
+        m = re.search(r"Compiling entry function '\S*" + pattern, ln)
         if m:
-            bn = int(m.group(1))
+            name = key.format(*m.groups())
             continue
         m = re.search(r"Used (\d+) registers", ln)
-        if m and bn is not None:
-            regs[bn] = int(m.group(1))
-            bn = None
-    lib = _build.load_library()
-    return {"registers_by_bn": regs,
-            "smem_bytes_by_bn": {b: lib.conv3x3_wgmma_smem_bytes(b)
-                                 for b in (16, 64, 104, 200)}}
+        if m and name is not None:
+            regs[name] = int(m.group(1))
+            name = None
+    return regs
 
 
 def main() -> int:
@@ -1400,6 +1590,10 @@ def main() -> int:
     if sys.argv[1:] == ["--route-kernels"]:
         phase_route_kernels(torch)
         emit(dict(route_kernels="done", gpu=nvidia_smi_line()))
+        return 0
+    if sys.argv[1:] == ["--k1-launches"]:
+        phase_kernels(torch, k1_only=True)
+        emit(dict(k1_launches="done", gpu=nvidia_smi_line()))
         return 0
     if sys.argv[1:] == ["--gradients"]:
         phase_gradients(torch)

@@ -143,3 +143,52 @@ def test_block_wrapper_rejects_devices_without_a_route():
         attention_cuda.atm_block(x, w, torch.zeros(128, 64), w,
                                  torch.zeros(64), torch.ones(64),
                                  torch.zeros(64), 0.35, None, None, 8, True)
+
+
+def test_bf16_block_takes_at_most_the_layernorm_pass_width():
+    """K1's bf16 LayerNorm pass holds C <= MAX_BF16_C channels a row: the
+    wrapper's checks refuse a wider bf16 block before any launch, and
+    take the same width in f32 (the f32 GEMM has no such limit)."""
+    C, N, heads = attention_cuda.MAX_BF16_C + 8, 4, 12
+    assert C // heads <= attention_cuda.MAX_HEAD_DIM
+    w = torch.zeros(C, C)
+    args = (w, torch.zeros(2 * C, C), w, torch.zeros(C), torch.ones(C),
+            torch.zeros(C), 0.35, None, None, heads, True)
+    with pytest.raises(ValueError, match="unsupported block shape"):
+        attention_cuda._block_call(
+            torch.zeros(2, N, C, dtype=torch.bfloat16), *args)
+    argv, y, motion, _ = attention_cuda._block_call(
+        torch.zeros(2, N, C), *args)
+    assert y.shape == (2, N, C) and motion is None and argv[4] is None
+
+
+def test_block_weight_packs_are_cached_per_weight():
+    """K1's [wq | wkv], wproj and bproj packs are made once per weight: a
+    repeat call returns the same packs; an in-place update of wkv (which
+    the q/kv pack is also made from) makes a new q/kv pack only; the
+    enhancement block's wq and wkv, row blocks of one qkv weight taken
+    anew each call, share that weight's pack until it changes."""
+    C, bf16 = 16, torch.bfloat16
+    g = torch.Generator().manual_seed(3)
+    wq, wkv, wp, bp = (torch.randn(*s, generator=g)
+                       for s in ((C, C), (2 * C, C), (C, C), (C,)))
+    first = attention_cuda._packs(wq, wkv, wp, bp, bf16)
+    assert all(a is b for a, b in
+               zip(attention_cuda._packs(wq, wkv, wp, bp, bf16), first))
+    assert torch.equal(first[0], torch.cat([wq, wkv]).to(bf16))
+    assert first[2].dtype == bf16 and torch.equal(first[2], bp.to(bf16))
+    with torch.no_grad():
+        wkv.mul_(2)
+    again = attention_cuda._packs(wq, wkv, wp, bp, bf16)
+    assert again[0] is not first[0] and again[1] is first[1]
+    assert torch.equal(again[0][C:], wkv.to(bf16))
+    assert attention_cuda._packs(wq, wkv, wp, bp, torch.float32)[0] \
+        is not again[0]
+    qkv = torch.randn(3 * C, C, generator=g)
+    one = attention_cuda._packs(qkv[:C], qkv[C:], wp, bp, bf16)[0]
+    assert attention_cuda._packs(qkv[:C], qkv[C:], wp, bp, bf16)[0] is one
+    with torch.no_grad():
+        qkv.add_(1)
+    two = attention_cuda._packs(qkv[:C], qkv[C:], wp, bp, bf16)[0]
+    assert two is not one and torch.equal(two, qkv.to(bf16))
+

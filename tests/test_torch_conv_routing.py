@@ -107,6 +107,37 @@ def test_padded_outputs_are_vector_readable():
     assert not conv_cuda.vec_readable(wide[..., 19:24][..., 1:], 24)
 
 
+@pytest.mark.parametrize("stride", [1, 2])
+def test_wgmma_route_takes_wide_aligned_bf16_maps(stride):
+    """K3 (stride 1) and K4 (stride 2) send a bf16 map of at least
+    WGMMA_MIN_CHANNELS channels at a pixel stride that is a multiple of 8
+    and a 16-byte aligned pointer to the wgmma kernel; f32, narrower maps
+    and other layouts take the implicit GEMM. On the CPU the wrapper
+    counts the call and runs the plain version: no launch, no wgmma
+    launch."""
+    bf16 = torch.bfloat16
+    # the encoder's 24-channel maps stay on igemm
+    assert conv_cuda.WGMMA_MIN_CHANNELS == 32
+    eligible = conv_cuda._wgmma_eligible
+    wide = torch.zeros(1, 5, 7, 48, dtype=bf16)
+    assert eligible(wide) and eligible(wide[..., :40])     # slice, stride 48
+    assert not eligible(wide[..., 8:32])                   # 24 channels
+    assert not eligible(wide.float())                      # f32: parity mode
+    assert not eligible(wide[..., 4:44])                   # 8-byte aligned
+    assert not eligible(torch.zeros(1, 5, 7, 36, dtype=bf16))  # stride 36
+    fn = conv_cuda.conv3x3 if stride == 1 else conv_cuda.conv3x3_s2
+    g = torch.Generator().manual_seed(7)
+    x = _rand(g, 1, 9, 13, 40).to(bf16)
+    w, b = _rand(g, 16, 40, 3, 3) / 19.0, _rand(g, 16) * 0.1
+    counts = (fn.calls, fn.launches, fn.wgmma_launches)
+    got = fn(x, w, b)
+    assert (fn.calls, fn.launches, fn.wgmma_launches) == (
+        counts[0] + 1, counts[1], counts[2])
+    want = conv_cuda.conv3x3_plain([x], w, b, None, stride, bf16)
+    assert got.shape == (1, -(-9 // stride), -(-13 // stride), 16)
+    assert torch.equal(got, want)
+
+
 # ---- routing: every conv-kernel layer of the forward goes through its
 # wrapper (on the card the same calls are launches)
 NARROW = dict(hidden_dims=(8, 16, 16, 32), last_feat_extra=16,
