@@ -1,7 +1,8 @@
-// Kernels K3 and K4, bf16: 3x3 convolution, stride 1 (K3) or 2 (K4), +
-// bias (+ per-channel PReLU), NHWC, as an implicit GEMM on Hopper's
-// wgmma with TMA loads, sm_90a. One kernel, the stride a template
-// parameter.
+// Kernels K3, K4 and K5, bf16: 3x3 convolution, stride 1 (K3, K5) or 2
+// (K4), + bias (+ per-channel PReLU), NHWC, as an implicit GEMM on
+// Hopper's wgmma with TMA loads, sm_90a. One kernel, the stride and the
+// source mode template parameters, and a second body for K5's lone
+// image (FOLD, below).
 //
 // Replaces `atmvfi_tpu/ops/conv_pallas.py::conv3x3_hcw` (:284, kernel
 // `_kernel` :148) and `conv3x3s2_hcw` (:953, kernel `_kernel_s2` :792)
@@ -11,6 +12,26 @@
 // rows are mostly zero fill, and it was slower than the implicit GEMM
 // in an on-chip trial, while at 48 channels it takes half the implicit
 // GEMM's time at stride 1 and 2 (PERF.md).
+//
+// K5 replaces `conv3x3_hcw_planes` (:543, kernel `_kernel_planes` :363,
+// call :613): the conv over the channel concat of up to six sources,
+// which is never built, where every source can take a tensor map (bf16
+// maps of >= 32 channels as K3's; f32 3-channel images whose rows of 3 W
+// floats are 16-byte multiples). MULTI walks (source, chunk) in place of
+// K3's chunks of one source: a bf16 source's 64-channel chunks come as
+// K3's halo boxes through its own map; the f32 images (up to five: the
+// refinement's im0, I_t_0, im1, I_t_1, I_t) come as one chunk, each image
+// a box of its 10 halo rows x 56 floats (3 x 18 halo columns from column
+// 3 (x0 - 1) - 1, 16-byte aligned; edges and padding from the map's zero
+// fill), rounded to bf16 by the consumers into one [180 pixel, 16
+// channel] tile (15 channels and a zero) that ldmatrix reads per tap as
+// one k16 slice. The weight is packed in that order (bf16 sources, each
+// from a multiple of 8, then the images' channels). FOLD (the encoder's
+// first conv, one f32 image, Cout <= 64): its 27 taps x channels fold
+// into K = 32, so a tile is one im2col tile [128 pixels, 32] made from
+// the image box and two k16 wgmma slices against a weight [Cout, 64]
+// kept in shared memory; a block walks tiles with the next image box in
+// flight, as the site is bound by bytes (60 of them a pixel).
 //
 // GEMM: M = output pixels, N = Cout, K = 9 taps x Cin. A block computes
 // an 8-row x 16-column output rectangle (128 pixels) for BN channels.
@@ -74,7 +95,15 @@ namespace wg {
 using namespace hopper;
 
 constexpr int BK = 64, CONSUMERS = 2;
+enum Mode { SINGLE = 0, MULTI = 1 };  // K3 / K4: one source; K5
+constexpr int MAX_MAPS = 6;           // K5's sources
+constexpr int MAX_CHUNKS = 32;        // K5's (source, 64-channel) chunks
 
+// K5's f32 3-channel images: a box is 10 halo rows of IMG_COLS floats;
+// boxes lie IMG_PITCH bytes apart in a halo buffer, then the bf16 tile
+// [180 halo pixels, 16 channels] (32-byte rows) at IMG_TILE.
+constexpr int IMG_COLS = 56, IMG_BOX = IMG_COLS * 10 * 4, IMG_PITCH = 2304;
+constexpr int MAX_IMGS = 5, IMG_TILE = MAX_IMGS * IMG_PITCH;
 // The input halo of an 8 x 16 output rectangle: 10 x 18 pixels at
 // stride 1, 17 x 33 at stride 2 (one box [64 ch, cols, rows, 1 image]
 // per channel chunk). Stride 1 double-buffers it (24 KB a buffer); at
@@ -111,13 +140,42 @@ struct Shape {
                               (2 * STAGES + 2 * HL::BUFS) * 8 + 1024;
 };
 
+static_assert(IMG_TILE + 180 * 32 <= Halo<1>::BYTES,
+              "K5's image boxes and tile fit a stride-1 halo buffer");
+
+// The FOLD body: a buffer holds the image box and the im2col tile
+// [128 pixels, 32 = 9 taps x 3 channels + 5 zeros] (64-byte rows) at
+// IMG_PITCH; two buffers, the weight [BN, 64] once, three blocks an SM.
+template <int BN>
+struct Fold {
+  static constexpr int THREADS = 128 * CONSUMERS + 32, BLOCKS_PER_SM = 3;
+  static constexpr int BUF = (IMG_PITCH + 128 * 64 + 1023) / 1024 * 1024;
+  static constexpr int B_BYTES = BN * BK * 2;
+  static constexpr int SMEM = 2 * BUF + B_BYTES + 5 * 8 + 1024;
+};
+
+// A chunk of K5's loop: bf16 source map `map` from channel ch (a halo
+// box), or the image chunk (ch < 0); the weight's k from k; ks k16
+// slices.
+struct Chunk {
+  int map, ch, k, ks;
+};
+
 struct Params {
-  int H, W, Cin, Cout;
+  int B, H, W, Cin, Cout;  // images; the output's rows, columns
   int tiles_x, tiles_y, n_tiles, nkc;
   const float* bias;
   const float* slope;  // null: no PReLU
   __nv_bfloat16* out;
   long long ops;       // output pixel stride
+  int nimg, img0;      // K5: f32 images, maps img0 ..
+  Chunk chunk[MAX_CHUNKS];  // K5 (MULTI): the chunks in order
+};
+
+// The sources' tensor maps: one for K3 / K4, up to MAX_MAPS for K5.
+template <int N>
+struct AMaps {
+  CUtensorMap m[N];
 };
 
 // m64nNk16, bf16 x bf16 -> f32: A from registers (each warp's 16 rows in
@@ -296,17 +354,86 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[BN / 2],
   else wgmma_rs_n256(d, a, b);
 }
 
+
+// Epilogue of a consumer warp: rows of its warpgroup are pixels 64 cg +
+// 16 (warp % 4) + lane / 4 (+ 8) of the 8 x 16 rectangle at (y0, x0) of
+// image b; columns n0 + 8 j + 2 (lane % 4) (+ 1). + bias, PReLU, one
+// rounding, bf16 pairs into the port's layout (pixel stride p.ops).
+template <int BN>
+__device__ __forceinline__ void store_rows(const float (&acc)[BN / 2],
+                                           const Params& p, int b, int y0,
+                                           int x0, int n0, int cg, int warp,
+                                           int lane) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = 64 * cg + 16 * (warp & 3) + (lane >> 2) + 8 * h;
+    const int y = y0 + r / 16, x = x0 + (r & 15);
+    if (y >= p.H || x >= p.W) continue;
+    __nv_bfloat16* o = p.out + (((long long)b * p.H + y) * p.W + x) * p.ops;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int n = n0 + 8 * j + 2 * (lane & 3);
+      if (n >= p.Cout) continue;
+      float v[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = n + e < p.Cout ? n + e : n;
+        float yv = __fadd_rn(acc[4 * j + 2 * h + e], p.bias[c]);
+        if (p.slope)
+          yv = __fadd_rn(fmaxf(yv, 0.0f),
+                         __fmul_rn(p.slope[c], fminf(yv, 0.0f)));
+        v[e] = yv;
+      }
+      if (n + 1 < p.Cout)
+        *reinterpret_cast<__nv_bfloat162*>(o + n) =
+            __floats2bfloat162_rn(v[0], v[1]);
+      else
+        o[n] = __float2bfloat16_rn(v[0]);
+    }
+  }
+}
+
+// K5's image chunk, by the 256 consumer threads: the nimg f32 boxes at
+// buf (IMG_PITCH apart) -> the bf16 tile [180 halo pixels, 16 channels]
+// at buf + IMG_TILE, channel k = 3 i + c of image i (k >= 3 nimg zero),
+// 32-byte rows whose 16-byte halves swap on every fourth row (ldmatrix
+// reads eight rows without a bank conflict).
+__device__ __forceinline__ void images_to_tile(unsigned char* buf,
+                                               int nimg) {
+  const float* st = reinterpret_cast<const float*>(buf);
+  uint32_t* tile = reinterpret_cast<uint32_t*>(buf + IMG_TILE);
+  const int kp = threadIdx.x & 7;  // channels 2 kp, 2 kp + 1
+  int off[2];
+  bool real[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int k = 2 * kp + e, i = k / 3;
+    real[e] = k < 3 * nimg;
+    off[e] = i * (IMG_PITCH / 4) + 1 + (k - 3 * i);
+  }
+  for (int t = threadIdx.x; t < 180 * 8; t += 128 * CONSUMERS) {
+    const int hp = t >> 3, hy = hp / 18, hx = hp - 18 * hy;
+    const int base = hy * IMG_COLS + 3 * hx;
+    const float v0 = real[0] ? st[base + off[0]] : 0.0f;
+    const float v1 = real[1] ? st[base + off[1]] : 0.0f;
+    tile[hp * 8 + (((kp >> 2) ^ ((hp >> 2) & 1)) << 2) + (kp & 3)] =
+        pack_bf16x2(v0, v1);
+  }
+}
+
 // One 128 x BN output tile a block. Blocks run BN-column tiles fastest,
 // so the blocks sharing an A tile run together; then 16-column, 8-row
-// rectangles, then images.
-template <int BN, int STRIDE>
+// rectangles, then images. MULTI (K5, stride 1) walks p.chunk.
+template <int BN, int STRIDE, int MODE>
 __global__ void __launch_bounds__(Shape<BN, STRIDE>::THREADS,
                                   Shape<BN, STRIDE>::BLOCKS_PER_SM)
-    conv3x3_wgmma_kernel(const __grid_constant__ CUtensorMap amap,
-                         const __grid_constant__ CUtensorMap bmap,
-                         const __grid_constant__ Params p) {
+    conv3x3_wgmma_kernel(
+        const __grid_constant__ AMaps<MODE == MULTI ? MAX_MAPS : 1> am,
+        const __grid_constant__ CUtensorMap bmap,
+        const __grid_constant__ Params p) {
   using S = Shape<BN, STRIDE>;
   using HL = Halo<STRIDE>;
+  static_assert(MODE == SINGLE || STRIDE == 1, "K5 runs at stride 1");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* halo = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -346,16 +473,32 @@ __global__ void __launch_bounds__(Shape<BN, STRIDE>::THREADS,
       int g = 0;
       for (int c = 0; c < p.nkc; ++c) {
         const int hb = c % HL::BUFS;
+        unsigned char* dst = halo + hb * HL::BYTES;
         mbar_wait(&a_empty[hb], ((c / HL::BUFS) & 1) ^ 1);
-        mbar_expect_tx(&a_full[hb], HL::TX);
-        tma_load_4d(halo + hb * HL::BYTES, &amap, &a_full[hb], c * BK,
-                    STRIDE * x0 - 1, STRIDE * y0 - 1, b);
+        int kb = c * BK;
+        if constexpr (MODE == MULTI) {
+          const Chunk ck = p.chunk[c];
+          kb = ck.k;
+          if (ck.ch >= 0) {
+            mbar_expect_tx(&a_full[hb], HL::TX);
+            tma_load_4d(dst, &am.m[ck.map], &a_full[hb], ck.ch, x0 - 1,
+                        y0 - 1, b);
+          } else {
+            mbar_expect_tx(&a_full[hb], p.nimg * IMG_BOX);
+            for (int i = 0; i < p.nimg; ++i)
+              tma_load_3d(dst + i * IMG_PITCH, &am.m[p.img0 + i],
+                          &a_full[hb], 3 * x0 - 4, y0 - 1, b);
+          }
+        } else {
+          mbar_expect_tx(&a_full[hb], HL::TX);
+          tma_load_4d(dst, &am.m[0], &a_full[hb], c * BK, STRIDE * x0 - 1,
+                      STRIDE * y0 - 1, b);
+        }
         for (int tap = 0; tap < 9; ++tap, ++g) {
           const int s = g % S::STAGES;
           mbar_wait(&empty[s], ((g / S::STAGES) & 1) ^ 1);
           mbar_expect_tx(&full[s], S::B_BYTES);
-          tma_load_3d(bring + s * S::B_BYTES, &bmap, &full[s], c * BK, n0,
-                      tap);
+          tma_load_3d(bring + s * S::B_BYTES, &bmap, &full[s], kb, n0, tap);
         }
       }
     }
@@ -379,17 +522,32 @@ __global__ void __launch_bounds__(Shape<BN, STRIDE>::THREADS,
     int g = 0;
     for (int c = 0; c < p.nkc; ++c) {
       const int hb = c % HL::BUFS;
-      const int ks = c == p.nkc - 1 ? tail : BK / 16;
+      int ks = c == p.nkc - 1 ? tail : BK / 16;
+      bool img = false;  // K5's image chunk: one k16 slice from the tile
+      if constexpr (MODE == MULTI) {
+        ks = p.chunk[c].ks;
+        img = p.chunk[c].ch < 0;
+      }
       mbar_wait(&a_full[hb], (c / HL::BUFS) & 1);
       const uint32_t hbase = smem_u32(halo + hb * HL::BYTES);
+      if (img) {
+        images_to_tile(halo + hb * HL::BYTES, p.nimg);
+        named_barrier(1, 128 * CONSUMERS);
+      }
       for (int tap = 0; tap < 9; ++tap, ++g) {
         const int dy = tap / 3, dx = tap - 3 * (tap / 3);
         const int hr = (STRIDE * ty + dy) * HL::COLS + STRIDE * lrow + dx;
         uint32_t a[BK / 16][4];
+        if (img) {
+          ldsm_x4(a[0], hbase + IMG_TILE + hr * 32 +
+                            ((lk ^ ((hr >> 2) & 1)) << 4));
+        } else {
 #pragma unroll
-        for (int k = 0; k < BK / 16; ++k)
-          if (k < ks)
-            ldsm_x4(a[k], hbase + hr * 128 + (((2 * k + lk) ^ (hr & 7)) << 4));
+          for (int k = 0; k < BK / 16; ++k)
+            if (k < ks)
+              ldsm_x4(a[k],
+                      hbase + hr * 128 + (((2 * k + lk) ^ (hr & 7)) << 4));
+        }
         if (tap == 8) {  // the chunk's halo is in registers: hand it back
           // the ldmatrix reads (generic proxy) before the TMA that
           // refills the buffer (async proxy); without the fence the
@@ -412,37 +570,111 @@ __global__ void __launch_bounds__(Shape<BN, STRIDE>::THREADS,
         if (threadIdx.x % 128 == 0) mbar_arrive(&empty[s]);
       }
     }
+    store_rows<BN>(acc, p, b, y0, x0, n0, cg, warp, lane);
+  }
+}
 
-    // epilogue: rows of this warpgroup are pixels 64 cg + 16 (warp % 4)
-    // + lane / 4 (+ 8); columns n0 + 8 j + 2 (lane % 4) (+ 1)
-#pragma unroll
+// FOLD: K5 over one f32 3-channel image, Cout <= BN (one column tile).
+// A block walks tiles blockIdx.x, + gridDim.x, ...; the producer thread
+// loads the weight once and each tile's image box (10 rows x 56 floats)
+// into one of two buffers; the consumers round the box into the im2col
+// tile [128 pixels, 32], column k = 3 (3 dy + dx) + c for tap (dy, dx)
+// and channel c (k >= 27 zero), 64-byte rows with their 16-byte pieces
+// swizzled by (row / 2) % 4, and run two k16 slices of wgmma against the
+// weight [BN, 64] (columns k, zero past 27).
+template <int BN>
+__global__ void __launch_bounds__(Fold<BN>::THREADS, Fold<BN>::BLOCKS_PER_SM)
+    conv3x3_fold_kernel(const __grid_constant__ CUtensorMap imap,
+                        const __grid_constant__ CUtensorMap bmap,
+                        const __grid_constant__ Params p) {
+  using F = Fold<BN>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* buf = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* wsm = buf + 2 * F::BUF;
+  uint64_t* w_full = reinterpret_cast<uint64_t*>(wsm + F::B_BYTES);
+  uint64_t* a_full = w_full + 1;
+  uint64_t* a_empty = a_full + 2;
+  const int tiles = p.tiles_x * p.tiles_y * p.B;
+  const int warp = threadIdx.x / 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(w_full, 1);
     for (int h = 0; h < 2; ++h) {
-      const int r = 64 * cg + 16 * (warp & 3) + (lane >> 2) + 8 * h;
-      const int y = y0 + r / 16, x = x0 + (r & 15);
-      if (y >= p.H || x >= p.W) continue;
-      __nv_bfloat16* o =
-          p.out + (((long long)b * p.H + y) * p.W + x) * p.ops;
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        const int n = n0 + 8 * j + 2 * (lane & 3);
-        if (n >= p.Cout) continue;
-        float v[2];
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int c = n + e < p.Cout ? n + e : n;
-          float yv = __fadd_rn(acc[4 * j + 2 * h + e], p.bias[c]);
-          if (p.slope)
-            yv = __fadd_rn(fmaxf(yv, 0.0f),
-                           __fmul_rn(p.slope[c], fminf(yv, 0.0f)));
-          v[e] = yv;
-        }
-        if (n + 1 < p.Cout)
-          *reinterpret_cast<__nv_bfloat162*>(o + n) =
-              __floats2bfloat162_rn(v[0], v[1]);
-        else
-          o[n] = __float2bfloat16_rn(v[0]);
+      mbar_init(&a_full[h], 1);
+      mbar_init(&a_empty[h], 4 * CONSUMERS);
+    }
+    fence_mbar_init();
+  }
+  __syncthreads();
+
+  if (warp >= 4 * CONSUMERS) {
+    if (threadIdx.x == 128 * CONSUMERS) {
+      mbar_expect_tx(w_full, F::B_BYTES);
+      tma_load_3d(wsm, &bmap, w_full, 0, 0, 0);
+      int i = 0;
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++i) {
+        const int hb = i & 1;
+        mbar_wait(&a_empty[hb], ((i >> 1) & 1) ^ 1);
+        mbar_expect_tx(&a_full[hb], IMG_BOX);
+        const int x0 = (t % p.tiles_x) * 16, u = t / p.tiles_x;
+        tma_load_3d(buf + hb * F::BUF, &imap, &a_full[hb], 3 * x0 - 4,
+                    (u % p.tiles_y) * 8 - 1, u / p.tiles_y);
       }
     }
+    return;
+  }
+
+  const int cg = warp / 4, lane = threadIdx.x & 31;
+  const int r = 16 * (4 * cg + (warp & 3)) + (lane & 15), lk = lane >> 4;
+  // this thread's two tile columns 2 kp, 2 kp + 1 and their offsets in
+  // the image box from the pixel's own
+  const int kp = threadIdx.x & 15;
+  int off[2];
+  bool real[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int k = 2 * kp + e, tap = k / 3;
+    real[e] = k < 27;
+    off[e] = (tap / 3) * IMG_COLS + 3 * (tap % 3) + 1 + (k - 3 * tap);
+  }
+  mbar_wait(w_full, 0);
+  const uint64_t db = sw128_desc(wsm);
+  int i = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x, ++i) {
+    const int hb = i & 1;
+    unsigned char* bb = buf + hb * F::BUF;
+    mbar_wait(&a_full[hb], (i >> 1) & 1);
+    const float* st = reinterpret_cast<const float*>(bb);
+    uint32_t* tile = reinterpret_cast<uint32_t*>(bb + IMG_PITCH);
+    for (int e = threadIdx.x; e < 128 * 16; e += 128 * CONSUMERS) {
+      const int rr = e >> 4;
+      const int base = (rr >> 4) * IMG_COLS + 3 * (rr & 15);
+      const float v0 = real[0] ? st[base + off[0]] : 0.0f;
+      const float v1 = real[1] ? st[base + off[1]] : 0.0f;
+      tile[rr * 16 + (((kp >> 2) ^ ((rr >> 1) & 3)) << 2) + (kp & 3)] =
+          pack_bf16x2(v0, v1);
+    }
+    named_barrier(1, 128 * CONSUMERS);
+    const uint32_t tb = smem_u32(bb + IMG_PITCH);
+    uint32_t a[2][4];
+#pragma unroll
+    for (int k = 0; k < 2; ++k)
+      ldsm_x4(a[k], tb + r * 64 + (((2 * k + lk) ^ ((r >> 1) & 3)) << 4));
+    fence_proxy_async();  // as in the halo kernel
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&a_empty[hb]);
+    float acc[BN / 2];
+#pragma unroll
+    for (int j = 0; j < BN / 2; ++j) acc[j] = 0.0f;
+    wgmma_fence();
+    wgmma_rs<BN>(acc, a[0], db);
+    wgmma_rs<BN>(acc, a[1], db + 2);
+    wgmma_commit();
+    wgmma_wait<0>();
+    const int x0 = (t % p.tiles_x) * 16, u = t / p.tiles_x;
+    store_rows<BN>(acc, p, u / p.tiles_y, (u % p.tiles_y) * 8, x0, 0, cg,
+                   warp, lane);
   }
 }
 
@@ -477,34 +709,57 @@ int pick_bn(int cout, int stride) {
   return best;
 }
 
-template <int BN, int STRIDE>
-int launch_bn(const CUtensorMap& amap, const CUtensorMap& bmap,
-              const Params& p, int tiles, cudaStream_t st) {
+template <int BN, int STRIDE, int MODE, typename Maps>
+int launch_bn(const Maps& am, const CUtensorMap& bmap, const Params& p,
+              int tiles, cudaStream_t st) {
   using S = Shape<BN, STRIDE>;
   const cudaError_t err = cudaFuncSetAttribute(
-      conv3x3_wgmma_kernel<BN, STRIDE>,
+      conv3x3_wgmma_kernel<BN, STRIDE, MODE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, S::SMEM);
   if (err != cudaSuccess) return (int)err;
-  conv3x3_wgmma_kernel<BN, STRIDE><<<tiles, S::THREADS, S::SMEM, st>>>(
-      amap, bmap, p);
+  conv3x3_wgmma_kernel<BN, STRIDE, MODE><<<tiles, S::THREADS, S::SMEM, st>>>(
+      am, bmap, p);
   return (int)cudaGetLastError();
 }
 
 // The column tiles of each stride (pick_bn): 128 and 256 at stride 2.
-template <int STRIDE>
-int launch_stride(const CUtensorMap& amap, const CUtensorMap& bmap,
-                  const Params& p, int bn, int tiles, cudaStream_t st) {
+template <int STRIDE, int MODE, typename Maps>
+int launch_stride(const Maps& am, const CUtensorMap& bmap, const Params& p,
+                  int bn, int tiles, cudaStream_t st) {
   switch (bn) {
-    case 16: return launch_bn<16, STRIDE>(amap, bmap, p, tiles, st);
-    case 64: return launch_bn<64, STRIDE>(amap, bmap, p, tiles, st);
-    case 104: return launch_bn<104, STRIDE>(amap, bmap, p, tiles, st);
-    case 200: return launch_bn<200, STRIDE>(amap, bmap, p, tiles, st);
+    case 16: return launch_bn<16, STRIDE, MODE>(am, bmap, p, tiles, st);
+    case 64: return launch_bn<64, STRIDE, MODE>(am, bmap, p, tiles, st);
+    case 104: return launch_bn<104, STRIDE, MODE>(am, bmap, p, tiles, st);
+    case 200: return launch_bn<200, STRIDE, MODE>(am, bmap, p, tiles, st);
   }
   if constexpr (STRIDE == 2) {
-    if (bn == 128) return launch_bn<128, 2>(amap, bmap, p, tiles, st);
-    if (bn == 256) return launch_bn<256, 2>(amap, bmap, p, tiles, st);
+    if (bn == 128) return launch_bn<128, 2, MODE>(am, bmap, p, tiles, st);
+    if (bn == 256) return launch_bn<256, 2, MODE>(am, bmap, p, tiles, st);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// FOLD: as many blocks as fit the card at once, or one a tile.
+template <int BN>
+int launch_fold(const CUtensorMap& imap, const CUtensorMap& bmap,
+                const Params& p, int tiles, cudaStream_t st) {
+  using F = Fold<BN>;
+  cudaError_t err = cudaFuncSetAttribute(
+      conv3x3_fold_kernel<BN>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      F::SMEM);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, conv3x3_fold_kernel<BN>, F::THREADS, F::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const long long fit = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  const int blocks = (int)(tiles < fit ? tiles : fit);
+  conv3x3_fold_kernel<BN><<<blocks, F::THREADS, F::SMEM, st>>>(imap, bmap,
+                                                              p);
+  return (int)cudaGetLastError();
 }
 
 template <int STRIDE>
@@ -522,6 +777,48 @@ int smem_bytes(int bn) {
   return 0;
 }
 
+// f32 map over an image's rows of 3 W floats (row stride 12 W bytes, a
+// multiple of 16; base 16-byte aligned), box [56 floats, 10 rows, 1].
+int encode_image(CUtensorMap* map, const void* base, int B, int H, int W) {
+  const cuuint64_t dims[3] = {(cuuint64_t)3 * W, (cuuint64_t)H,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[2] = {(cuuint64_t)12 * W,
+                                 (cuuint64_t)12 * W * H};
+  const cuuint32_t box[3] = {IMG_COLS, 10, 1};
+  return hopper::encode_as(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                           CU_TENSOR_MAP_SWIZZLE_NONE, 3, base, dims,
+                           strides, box);
+}
+
+// Params of a stride-1 or -2 conv to an output of Cout channels at pixel
+// stride out_ps, column tile bn.
+Params params_for(int B, int H, int W, int Cin, int stride, int bn,
+                  const float* bias, const float* slope, void* out, int Cout,
+                  long long out_ps) {
+  Params p{};
+  p.B = B;
+  p.H = (H - 1) / stride + 1;  // the output's rows and columns
+  p.W = (W - 1) / stride + 1;
+  p.Cin = Cin;
+  p.Cout = Cout;
+  p.tiles_x = (p.W + 15) / 16;
+  p.tiles_y = (p.H + 7) / 8;
+  p.n_tiles = (Cout + bn - 1) / bn;
+  p.nkc = (Cin + BK - 1) / BK;
+  p.bias = bias;
+  p.slope = slope;
+  p.out = static_cast<__nv_bfloat16*>(out);
+  p.ops = out_ps;
+  return p;
+}
+
+bool out_ok(int B, int H, int W, int Cout, const void* out, long long out_ps,
+            const float* bias) {
+  return B >= 1 && H >= 1 && W >= 1 && Cout >= 1 && out_ps >= Cout &&
+         out_ps % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 4 == 0 &&
+         bias && (long long)B * H * W < (1LL << 31);
+}
+
 }  // namespace wg
 }  // namespace
 
@@ -532,18 +829,19 @@ extern "C" int conv3x3_wgmma_smem_bytes(int bn, int stride) {
                      : stride == 2 ? wg::smem_bytes<2>(bn) : 0;
 }
 
-// The weight's tensor map for packed bf16 weights w [9][Cout][Kp]
-// (Kp % 8 == 0) in a conv of the given stride: writes the 128-byte
-// CUtensorMap to map_out and the column tile BN it was made for to
-// bn_out.
+// The weight's tensor map for packed bf16 weights w [taps][Cout][Kp]
+// (Kp % 8 == 0; taps 9, or 1 for K5's FOLD) in a conv of the given
+// stride: writes the 128-byte CUtensorMap to map_out and the column tile
+// BN it was made for to bn_out.
 extern "C" int conv3x3_wgmma_weight_map(const void* w, int Kp, int Cout,
-                                        int stride, void* map_out,
+                                        int stride, int taps, void* map_out,
                                         int* bn_out) {
   if (Kp < 8 || Kp % 8 || Cout < 1 || reinterpret_cast<uintptr_t>(w) % 16 ||
-      (stride != 1 && stride != 2))
+      (stride != 1 && stride != 2) || (taps != 9 && taps != 1))
     return (int)cudaErrorInvalidValue;
   const int bn = wg::pick_bn(Cout, stride);
-  const cuuint64_t dims[3] = {(cuuint64_t)Kp, (cuuint64_t)Cout, 9};
+  const cuuint64_t dims[3] = {(cuuint64_t)Kp, (cuuint64_t)Cout,
+                              (cuuint64_t)taps};
   const cuuint64_t strides[2] = {(cuuint64_t)Kp * 2,
                                  (cuuint64_t)Kp * 2 * Cout};
   const cuuint32_t box[3] = {wg::BK, (cuuint32_t)bn, 1};
@@ -566,11 +864,9 @@ extern "C" int conv3x3_wgmma_bf16(const void* x, long long ps, int B, int H,
                                   const float* bias, const float* slope,
                                   void* out, int Cout, long long out_ps,
                                   void* stream) {
-  if (B < 1 || H < 1 || W < 1 || Cin < 1 || Cout < 1 || ps < Cin ||
-      ps % 8 || reinterpret_cast<uintptr_t>(x) % 16 || out_ps < Cout ||
-      out_ps % 2 || reinterpret_cast<uintptr_t>(out) % 4 || !bias ||
-      (stride != 1 && stride != 2) || bn != wg::pick_bn(Cout, stride) ||
-      (long long)B * H * W >= (1LL << 31))
+  if (!wg::out_ok(B, H, W, Cout, out, out_ps, bias) || Cin < 1 || ps < Cin ||
+      ps % 8 || reinterpret_cast<uintptr_t>(x) % 16 ||
+      (stride != 1 && stride != 2) || bn != wg::pick_bn(Cout, stride))
     return (int)cudaErrorInvalidValue;
   const cuuint64_t dims[4] = {(cuuint64_t)Cin, (cuuint64_t)W, (cuuint64_t)H,
                               (cuuint64_t)B};
@@ -580,26 +876,104 @@ extern "C" int conv3x3_wgmma_bf16(const void* x, long long ps, int B, int H,
       wg::BK,
       (cuuint32_t)(stride == 1 ? wg::Halo<1>::COLS : wg::Halo<2>::COLS),
       (cuuint32_t)(stride == 1 ? wg::Halo<1>::ROWS : wg::Halo<2>::ROWS), 1};
-  alignas(64) CUtensorMap amap, bmap;
-  const int rc = hopper::encode(&amap, 4, x, dims, strides, box);
+  alignas(64) wg::AMaps<1> am;
+  alignas(64) CUtensorMap bmap;
+  const int rc = hopper::encode(&am.m[0], 4, x, dims, strides, box);
   if (rc) return rc;
   memcpy(&bmap, wmap, sizeof(bmap));
-  wg::Params p;
-  p.H = (H - 1) / stride + 1;  // the output's rows and columns
-  p.W = (W - 1) / stride + 1;
-  p.Cin = Cin;
-  p.Cout = Cout;
-  p.tiles_x = (p.W + 15) / 16;
-  p.tiles_y = (p.H + 7) / 8;
-  p.n_tiles = (Cout + bn - 1) / bn;
-  p.nkc = (Cin + wg::BK - 1) / wg::BK;
-  p.bias = bias;
-  p.slope = slope;
-  p.out = static_cast<__nv_bfloat16*>(out);
-  p.ops = out_ps;
+  const wg::Params p = wg::params_for(B, H, W, Cin, stride, bn, bias, slope,
+                                      out, Cout, out_ps);
   const long long tiles = (long long)B * p.tiles_y * p.tiles_x * p.n_tiles;
   if (tiles >= (1LL << 31)) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return stride == 1 ? wg::launch_stride<1>(amap, bmap, p, bn, (int)tiles, st)
-                     : wg::launch_stride<2>(amap, bmap, p, bn, (int)tiles, st);
+  return stride == 1
+             ? wg::launch_stride<1, wg::SINGLE>(am, bmap, p, bn, (int)tiles,
+                                                st)
+             : wg::launch_stride<2, wg::SINGLE>(am, bmap, p, bn, (int)tiles,
+                                                st);
+}
+
+// K5 bf16 on wgmma: the stride-1 conv over the channel concat of nsrc
+// sources, desc 5 int64 each (pointer, pixel stride, channels, is_f32,
+// unused), all [B, H, W]. A bf16 source: pixel stride a multiple of 8,
+// 16-byte aligned. An f32 source: 3 channels at pixel stride 3, 16-byte
+// aligned, 12 W a multiple of 16; at most five. The weight map (from
+// conv3x3_wgmma_weight_map, column tile bn) is the weight packed in the
+// kernel's order: the bf16 sources in turn, each from a multiple of 8,
+// then the images' channels (9 taps); with fold (one f32 source alone,
+// Cout <= bn) the [1][Cout][64] fold of its 27 taps x channels. out
+// [B, H, W, Cout] bf16 at pixel stride out_ps.
+extern "C" int conv3x3_multi_wgmma_bf16(const int64_t* desc, int nsrc, int B,
+                                        int H, int W, const void* wmap,
+                                        int bn, int fold, const float* bias,
+                                        const float* slope, void* out,
+                                        int Cout, long long out_ps,
+                                        void* stream) {
+  if (!wg::out_ok(B, H, W, Cout, out, out_ps, bias) || nsrc < 1 ||
+      nsrc > wg::MAX_MAPS || bn != wg::pick_bn(Cout, 1) || (12LL * W) % 16)
+    return (int)cudaErrorInvalidValue;
+  alignas(64) wg::AMaps<wg::MAX_MAPS> am;
+  alignas(64) CUtensorMap bmap;
+  memcpy(&bmap, wmap, sizeof(bmap));
+  wg::Params p = wg::params_for(B, H, W, 0, 1, bn, bias, slope, out, Cout,
+                                out_ps);
+  int nmap = 0, nchunk = 0, k = 0, cin = 0;
+  // the bf16 sources, then the images
+  for (int pass = 0; pass < 2; ++pass)
+    for (int s = 0; s < nsrc; ++s) {
+      const void* ptr = reinterpret_cast<const void*>(desc[5 * s]);
+      const long long ps = desc[5 * s + 1];
+      const int C = (int)desc[5 * s + 2], f32 = (int)desc[5 * s + 3];
+      if (f32 != pass) continue;
+      if (reinterpret_cast<uintptr_t>(ptr) % 16 || C < 1 || ps < C)
+        return (int)cudaErrorInvalidValue;
+      if (pass == 1) {
+        if (C != 3 || ps != 3 || p.nimg == wg::MAX_IMGS)
+          return (int)cudaErrorInvalidValue;
+        if (p.nimg++ == 0) p.img0 = nmap;
+        if (wg::encode_image(&am.m[nmap++], ptr, B, H, W))
+          return (int)cudaErrorInvalidValue;
+        continue;
+      }
+      if (ps % 8) return (int)cudaErrorInvalidValue;
+      const cuuint64_t dims[4] = {(cuuint64_t)C, (cuuint64_t)W,
+                                  (cuuint64_t)H, (cuuint64_t)B};
+      const cuuint64_t strides[3] = {(cuuint64_t)ps * 2,
+                                     (cuuint64_t)ps * 2 * W,
+                                     (cuuint64_t)ps * 2 * W * H};
+      const cuuint32_t box[4] = {wg::BK, wg::Halo<1>::COLS,
+                                 wg::Halo<1>::ROWS, 1};
+      if (hopper::encode(&am.m[nmap], 4, ptr, dims, strides, box))
+        return (int)cudaErrorInvalidValue;
+      for (int c0 = 0; c0 < C; c0 += wg::BK) {
+        if (nchunk == wg::MAX_CHUNKS) return (int)cudaErrorInvalidValue;
+        const int n = C - c0 < wg::BK ? C - c0 : wg::BK;
+        p.chunk[nchunk++] = wg::Chunk{nmap, c0, k + c0, (n + 15) / 16};
+      }
+      ++nmap;
+      k += (C + 7) / 8 * 8;
+      cin += C;
+    }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (fold) {
+    if (nmap != 1 || p.nimg != 1 || Cout > bn) return (int)cudaErrorInvalidValue;
+    p.Cin = 3;
+    const long long tiles = (long long)B * p.tiles_y * p.tiles_x;
+    if (tiles >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+    if (bn == 16)
+      return wg::launch_fold<16>(am.m[0], bmap, p, (int)tiles, st);
+    if (bn == 64)
+      return wg::launch_fold<64>(am.m[0], bmap, p, (int)tiles, st);
+    return (int)cudaErrorInvalidValue;
+  }
+  if (p.nimg) {
+    if (nchunk == wg::MAX_CHUNKS) return (int)cudaErrorInvalidValue;
+    p.chunk[nchunk++] = wg::Chunk{p.img0, -1, k, 1};
+    cin += 3 * p.nimg;
+  }
+  p.Cin = cin;
+  p.nkc = nchunk;
+  const long long tiles = (long long)B * p.tiles_y * p.tiles_x * p.n_tiles;
+  if (tiles >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  return wg::launch_stride<1, wg::MULTI>(am, bmap, p, bn, (int)tiles, st);
 }

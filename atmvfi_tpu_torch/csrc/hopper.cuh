@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the wgmma + TMA kernels
-// (conv3x3_wgmma.cu: K3 / K4; atm_block.cu: K1's GEMM launches):
-// mbarriers, TMA loads through tensor maps, wgmma
+// (conv3x3_wgmma.cu: K3 / K4 / K5; atm_block.cu: K1's GEMM launches;
+// deconv2x_wgmma.cu: K6): mbarriers, TMA loads through tensor maps, wgmma
 // shared-memory descriptors of 128-byte-swizzled K-major tiles, wgmma
-// fences, ldmatrix / stmatrix, and the host-side encoding of tensor maps.
+// fences and products with both operands in shared memory, the k-chunk
+// loop of a streaming GEMM (one producer thread, consumer warpgroups),
+// ldmatrix / stmatrix, and the host-side encoding of tensor maps.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums (types only, no libcuda link)
@@ -142,6 +144,139 @@ __device__ __forceinline__ void stsm_x4(uint32_t addr, uint32_t r0,
       : "memory");
 }
 
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  uint32_t r;  // round to nearest even, hi in the upper half
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;\n" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
+}
+
+// m64nNk16, bf16 x bf16 -> f32, A and B K-major from shared memory
+// (128-byte swizzle descriptors), the sums accumulated into d.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wgmma_ss_n224(float (&d)[112], uint64_t a,
+                                              uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %114, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n224k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111"
+      "}, %112, %113, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]),
+        "+f"(d[78]), "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]),
+        "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]),
+        "+f"(d[102]), "+f"(d[103]), "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]),
+        "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111])
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <int BNW>
+__device__ __forceinline__ void wgmma_ss(float (&d)[BNW / 2], uint64_t a,
+                                         uint64_t b) {
+  if constexpr (BNW == 128) wgmma_ss_n128(d, a, b);
+  else wgmma_ss_n224(d, a, b);
+}
+
+
+// The k-chunk loop of a streaming GEMM whose ring stage s holds a
+// [BM rows, 64] chunk of A (A_BYTES, rows m0 ..) and then a [BNW rows,
+// 64] chunk of W (rows n0 ..), both 128-byte swizzled, STAGE bytes in
+// all. The producer thread fills stages as the consumers release them
+// (full / empty mbarriers, one arrival per consumer warpgroup) and calls
+// first() once the first stage's loads are issued.
+template <int A_BYTES, int STAGE, typename First>
+__device__ __forceinline__ void ss_produce(const CUtensorMap* amap,
+                                           const CUtensorMap* bmap,
+                                           unsigned char* ring,
+                                           uint64_t* full, uint64_t* empty,
+                                           int nkc, int stages, int m0,
+                                           int n0, First first) {
+  for (int kc = 0; kc < nkc; ++kc) {
+    const int s = kc % stages;
+    mbar_wait(&empty[s], ((kc / stages) & 1) ^ 1);
+    mbar_expect_tx(&full[s], STAGE);
+    tma_load_2d(ring + s * STAGE, amap, &full[s], kc * 64, m0);
+    tma_load_2d(ring + s * STAGE + A_BYTES, bmap, &full[s], kc * 64, n0);
+    if (kc == 0) first();
+  }
+}
+
+// Consumer warpgroup cg of the loop above: its 64 rows of A (rows 64 cg
+// of the stage) times the stage's W into acc; the k16 slices of the last
+// chunk past K are not issued. Returns with every product done.
+template <int BNW, int A_BYTES, int STAGE>
+__device__ __forceinline__ void ss_consume(float (&acc)[BNW / 2],
+                                           unsigned char* ring,
+                                           uint64_t* full, uint64_t* empty,
+                                           int nkc, int stages, int K,
+                                           int cg) {
+  const int tail = (K - (nkc - 1) * 64 + 15) / 16;  // k16 slices
+  int prev = 0;
+  for (int kc = 0; kc < nkc; ++kc) {
+    const int s = kc % stages;
+    mbar_wait(&full[s], (kc / stages) & 1);
+    const uint64_t da = sw128_desc(ring + s * STAGE + cg * 64 * 128);
+    const uint64_t db = sw128_desc(ring + s * STAGE + A_BYTES);
+    const int ks = kc == nkc - 1 ? tail : 4;
+    wgmma_fence();
+#pragma unroll
+    for (int k = 0; k < 4; ++k)
+      if (k < ks) wgmma_ss<BNW>(acc, da + 2 * k, db + 2 * k);
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous chunk's products are done
+    if (kc > 0 && threadIdx.x % 128 == 0) mbar_arrive(&empty[prev]);
+    prev = s;
+  }
+  wgmma_wait<0>();
+}
+
 // ---------------------------------------------------------------------
 // host side
 
@@ -172,31 +307,57 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// bf16 tiled map with the 128-byte swizzle and zero fill out of bounds;
-// dims and box innermost first, strides in bytes for dims 1..rank-1.
-inline int encode(CUtensorMap* map, int rank, const void* base,
-                  const cuuint64_t* dims, const cuuint64_t* strides,
-                  const cuuint32_t* box) {
+// Tiled map of the given element type and swizzle, zero fill out of
+// bounds; dims and box innermost first, strides in bytes for dims
+// 1..rank-1.
+inline int encode_as(CUtensorMap* map, CUtensorMapDataType type,
+                     CUtensorMapSwizzle swizzle, int rank, const void* base,
+                     const cuuint64_t* dims, const cuuint64_t* strides,
+                     const cuuint32_t* box) {
   EncodeTiled fn = encode_tiled();
   if (!fn) return (int)cudaErrorNotSupported;
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-                        const_cast<void*>(base), dims, strides, box, ones,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  const CUresult r = fn(map, type, rank, const_cast<void*>(base), dims,
+                        strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                        swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// Row-major bf16 matrix [rows, cols] (cols % 8 == 0, base 16-byte
-// aligned) with box [64 columns, box_rows rows].
+// bf16 tiled map with the 128-byte swizzle and zero fill out of bounds.
+inline int encode(CUtensorMap* map, int rank, const void* base,
+                  const cuuint64_t* dims, const cuuint64_t* strides,
+                  const cuuint32_t* box) {
+  return encode_as(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                   CU_TENSOR_MAP_SWIZZLE_128B, rank, base, dims, strides,
+                   box);
+}
+
+// Row-major bf16 matrix [rows, cols] (base 16-byte aligned) whose rows
+// lie row_stride elements apart (a multiple of 8; cols when 0), with box
+// [64 columns, box_rows rows]; columns past cols read as zeros.
 inline int encode_rows(CUtensorMap* map, const void* base, long long rows,
-                       int cols, int box_rows) {
+                       int cols, int box_rows, long long row_stride = 0) {
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint64_t strides[1] = {(cuuint64_t)(row_stride ? row_stride : cols)
+                                 * 2};
   const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
   return encode(map, 2, base, dims, strides, box);
+}
+
+// Column tile with the fewest padded columns among cands (ties to the
+// wider).
+template <int NC>
+inline int least_padded(int N, const int (&cands)[NC]) {
+  int best = 0, cost = 1 << 30;
+  for (int bnw : cands) {
+    const int c = (N + bnw - 1) / bnw * bnw;
+    if (c <= cost) {
+      cost = c;
+      best = bnw;
+    }
+  }
+  return best;
 }
 
 }  // namespace hopper

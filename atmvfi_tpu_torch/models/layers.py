@@ -36,7 +36,12 @@ import torch.nn.functional as F
 from atmvfi_tpu_torch import ops
 from atmvfi_tpu_torch.ops.attention import layer_norm_f32
 from atmvfi_tpu_torch.ops.attention_cuda import atm_block, window_attention
-from atmvfi_tpu_torch.ops.conv_cuda import conv3x3, conv3x3_multi, conv3x3_s2
+from atmvfi_tpu_torch.ops.conv_cuda import (
+    conv3x3,
+    conv3x3_multi,
+    conv3x3_s2,
+    padded_map,
+)
 from atmvfi_tpu_torch.ops.deconv_cuda import deconv2x
 
 LN_EPS = 1e-5
@@ -107,7 +112,12 @@ class PReLU(nn.Module):
     """Per-channel PReLU on NHWC: where(x >= 0, x, a * x), which equals
     the JAX package's max(x, 0) + a * min(x, 0) for every finite x. One
     F.prelu pass over the channels_last view (the max/min form costs
-    four elementwise passes on the card)."""
+    four elementwise passes on the card). Outside autograd, on a channel
+    view of a wider map whose pixel stride is a multiple of 8 (a conv
+    kernel's output with C % 8 != 0), the pass runs over the whole map
+    with the slope padded by zeros, so its output keeps that pixel stride
+    and the next kernel (the decoder's deconv, K6) can read it by TMA;
+    the C channels are the same values."""
 
     def __init__(self, features: int):
         super().__init__()
@@ -117,8 +127,16 @@ class PReLU(nn.Module):
         nn.init.constant_(self.weight, 0.25)
 
     def forward(self, x):
-        y = F.prelu(x.permute(0, 3, 1, 2), self.weight.to(x.dtype))
-        return y.permute(0, 2, 3, 1)
+        a = self.weight.to(x.dtype)
+        C = x.shape[3]
+        full = None
+        if not (torch.is_grad_enabled()
+                and (x.requires_grad or a.requires_grad)):
+            full = padded_map(x)
+        if full is not None:
+            x, a = full, F.pad(a, (0, full.shape[3] - C))
+        y = F.prelu(x.permute(0, 3, 1, 2), a)
+        return y.permute(0, 2, 3, 1)[..., :C]
 
 
 class ConvPReLU(nn.Sequential):

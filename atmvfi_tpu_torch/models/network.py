@@ -52,7 +52,7 @@ from atmvfi_tpu_torch.models.layers import (
     RefineBottleneck,
     reset_parameters,
 )
-from atmvfi_tpu_torch.ops.conv_cuda import conv3x3_pair
+from atmvfi_tpu_torch.ops.conv_cuda import cat_nhwc, conv3x3_pair
 from atmvfi_tpu_torch.ops.warp_cuda import (
     flow_warp,
     flow_warp_blend,
@@ -247,12 +247,14 @@ class Network(nn.Module):
     def _decoder_input(self, enh, out, warp):
         """[warp(frame-0 features, flow0) || warp(frame-1 features, flow1)
         || head output]: the decoder input, with `warp(feature, flow)`
-        the full-frame or the row warp."""
+        the full-frame or the row warp. Built in a map whose pixel stride
+        is a multiple of 8 (773 channels at 776), which the first deconv
+        (K6) reads by TMA; the same bytes as torch.cat."""
         fd1 = self.cfg.decoder_dims[0]
         out_f = out.float()
-        return torch.cat([warp(enh[..., :fd1], out_f[..., 0:2].contiguous()),
-                          warp(enh[..., fd1:2 * fd1],
-                               out_f[..., 2:4].contiguous()), out], -1)
+        return cat_nhwc([warp(enh[..., :fd1], out_f[..., 0:2].contiguous()),
+                         warp(enh[..., fd1:2 * fd1],
+                              out_f[..., 2:4].contiguous()), out])
 
     # ---- the multiscale global-motion ensemble -------------------------
     def _global_alignmentness(self, flow0, flow1, im0, im1):

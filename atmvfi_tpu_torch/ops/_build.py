@@ -154,8 +154,9 @@ def _declare(lib) -> None:
     # bf16 weight [N, K], N, K, CUtensorMap out (128 bytes)
     lib.atm_block_weight_map.argtypes = [P, I, I, P]
     lib.atm_block_weight_map.restype = I
-    # packed weight, Kp, Cout, stride, CUtensorMap out (128 bytes), BN out
-    lib.conv3x3_wgmma_weight_map.argtypes = [P, I, I, I, P,
+    # packed weight, Kp, Cout, stride, taps (9, or 1 for K5's fold),
+    # CUtensorMap out (128 bytes), BN out
+    lib.conv3x3_wgmma_weight_map.argtypes = [P, I, I, I, I, P,
                                              ctypes.POINTER(ctypes.c_int)]
     lib.conv3x3_wgmma_weight_map.restype = I
     # x, pixel stride, B, H, W, Cin, stride, weight map, BN, bias, slope,
@@ -166,6 +167,22 @@ def _declare(lib) -> None:
     # BN, stride
     lib.conv3x3_wgmma_smem_bytes.argtypes = [I, I]
     lib.conv3x3_wgmma_smem_bytes.restype = I
+    # K5: source descriptors (int64 x 5 each), nsrc, B, H, W, weight map,
+    # BN, fold, bias, slope, out, Cout, out pixel stride, stream
+    lib.conv3x3_multi_wgmma_bf16.argtypes = [
+        ctypes.POINTER(ctypes.c_int64), I, I, I, I, P, I, I, P, P, P, I,
+        ctypes.c_int64, P]
+    lib.conv3x3_multi_wgmma_bf16.restype = I
+    # K6: packed weight [N, Kp], N, Kp, column tile (0: the plan's),
+    # CUtensorMap out (128 bytes), column tile out
+    lib.deconv2x_wgmma_weight_map.argtypes = [P, I, I, I, P,
+                                              ctypes.POINTER(ctypes.c_int)]
+    lib.deconv2x_wgmma_weight_map.restype = I
+    # x, pixel stride, B, H, W, Cin, weight map, column tile, bias, slope,
+    # out, Cout, out pixel stride, stream
+    lib.deconv2x_wgmma_bf16.argtypes = [P, ctypes.c_int64, I, I, I, I, P, I,
+                                        P, P, P, I, ctypes.c_int64, P]
+    lib.deconv2x_wgmma_bf16.restype = I
 
 
 def load_library():

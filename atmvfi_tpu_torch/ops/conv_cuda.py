@@ -15,24 +15,32 @@
   `conv3x3_s2.wgmma_launches` counts its wgmma launches.
 * `conv3x3_multi` (K5) replaces `conv3x3_hcw_planes_op` and
   `conv3x3_planes_only_op`: the conv over the channel concat of up to
-  six sources, which is never built.
+  six sources, which is never built. In bf16, where every source can
+  take a TMA tensor map (bf16 maps as K3's wgmma route takes them; f32
+  3-channel images at pixel stride 3 whose rows of 3 W floats are
+  16-byte multiples; at most five images), it runs K3's wgmma kernel
+  with one map per source (`csrc/conv3x3_wgmma.cu`, MULTI), or its
+  folded body for one image alone (the encoder's first conv);
+  `conv3x3_multi.wgmma_launches` counts those. Otherwise it runs the
+  implicit GEMM.
 * `conv3x3_pair` (K12) replaces `conv3x3_pair_hcw_op`: two stride-1
   convs, conv_b(round(PReLU_a(conv_a(x) + bias_a))) + bias_b
   (+ PReLU_b), the intermediate kept on chip.
 
-For CPU tensors each runs its plain version (`ops.conv`); for
-CUDA tensors it launches the kernel or raises, differentiably through
-the plain version's VJP when grad is on (`ops._autograd`). `<fn>.calls`
+For CPU tensors each runs its plain version (`ops.conv`), its output
+in the layout the kernel gives on the card (`card_layout`); for CUDA
+tensors it launches the kernel or raises, differentiably through the
+plain version's VJP when grad is on (`ops._autograd`). `<fn>.calls`
 counts the calls on any device, `<fn>.launches` the kernel launches
 (one per call on the card).
 
 Activations are NHWC with contiguous channels; the pixel stride may be
 larger than C, so a channel slice (`feat[..., :-5]`) is read in place.
 Sources may be f32 or bf16: an f32 source in a bf16 conv is rounded as
-it is loaded. On the card an output whose channel count is not a
-multiple of 8 (389, 197, 101, 3) is a channel view of a map whose pixel
-stride is rounded up to 8, so the next kernel reads it with 16-byte
-vectors (`vec_readable`); on the CPU outputs are contiguous.
+it is loaded. An output whose channel count is not a multiple of 8
+(389, 197, 101, 3) is a channel view of a map whose pixel stride is
+rounded up to 8 (on the CPU too), so the next kernel reads it with
+16-byte vectors (`vec_readable`) or through a TMA tensor map.
 
 `weight` is the f32 OIHW parameter; the wrapper packs it into the
 working type as [9, Cout, Kp] (Kp = channels rounded up to 8, zeros
@@ -44,6 +52,7 @@ read as f32.
 from __future__ import annotations
 
 import ctypes
+import functools
 import weakref
 from typing import Optional, Sequence
 
@@ -92,6 +101,49 @@ def empty_nhwc(B: int, H: int, W: int, C: int, dtype, device):
     """[B, H, W, C] output whose pixel stride is C rounded up to 8."""
     cp = -(-C // 8) * 8
     return torch.empty((B, H, W, cp), dtype=dtype, device=device)[..., :C]
+
+
+def card_layout(y: torch.Tensor) -> torch.Tensor:
+    """y in the layout a kernel writes it on the card: a channel view of
+    `empty_nhwc` when C % 8 != 0 (one copy; y itself otherwise)."""
+    B, H, W, C = y.shape
+    if C % 8 == 0:
+        return y
+    return empty_nhwc(B, H, W, C, y.dtype, y.device).copy_(y)
+
+
+def cat_nhwc(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    """torch.cat(parts, -1) written into an `empty_nhwc` map (pixel
+    stride a multiple of 8, so the next kernel can take it by TMA): the
+    same bytes as the cat, one copy into each part's channel slice."""
+    B, H, W, _ = parts[0].shape
+    C = sum(p.shape[3] for p in parts)
+    dtype = functools.reduce(torch.promote_types, (p.dtype for p in parts))
+    out = empty_nhwc(B, H, W, C, dtype, parts[0].device)
+    c = 0
+    for p in parts:
+        out[..., c:c + p.shape[3]].copy_(p)
+        c += p.shape[3]
+    return out
+
+
+def padded_map(x: torch.Tensor) -> Optional[torch.Tensor]:
+    """The whole [B, H, W, ps] map whose first C channels x is, when x
+    has a pixel stride ps > C that is a multiple of 8 (an `empty_nhwc`
+    output or a row slice of one); None otherwise."""
+    if x.dim() != 4:
+        return None
+    try:
+        ps = pixel_stride(x)
+    except ValueError:
+        return None
+    B, H, W, C = x.shape
+    if ps == C or ps % 8 or x.storage_offset() % ps:
+        return None
+    if x.storage_offset() + B * H * W * ps > x.untyped_storage().nbytes() \
+            // x.element_size():
+        return None
+    return x.as_strided((B, H, W, ps), (H * W * ps, W * ps, ps, 1))
 
 
 def pack_weight(view_shape, src: torch.Tensor, kin: int, dtype):
@@ -187,8 +239,8 @@ def _wgmma_weight(weight: torch.Tensor, cin: int, dev, stride: int):
         lib = _build.load_library()
         with torch.cuda.device(dev):
             rc = lib.conv3x3_wgmma_weight_map(w.data_ptr(), kp,
-                                              weight.shape[0], stride, tmap,
-                                              ctypes.byref(bn))
+                                              weight.shape[0], stride, 9,
+                                              tmap, ctypes.byref(bn))
         _build.check(rc, "conv3x3 wgmma weight map")
         return w, tmap, bn.value
 
@@ -254,7 +306,8 @@ def _run(fn, entry: str, sources, weight, bias, slope, stride, dtype):
     fn.calls += 1
     dev = sources[0].device
     if dev.type == "cpu":
-        return conv3x3_plain(sources, weight, bias, slope, stride, dtype)
+        return card_layout(conv3x3_plain(sources, weight, bias, slope,
+                                         stride, dtype))
     if dev.type != "cuda":
         raise ValueError(f"no conv kernel for device {dev}")
     out = _autograd.launch(
@@ -293,15 +346,146 @@ def conv3x3_s2(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return _run_single(conv3x3_s2, "conv3x3s2", x, weight, bias, slope, 2)
 
 
+# K5 on the wgmma kernel (csrc/conv3x3_wgmma.cu): at most MULTI_MAX_IMAGES
+# f32 images (15 channels and a zero fill one k16 slice) and
+# MULTI_MAX_CHUNKS (source, 64-channel) chunks in all; the folded body
+# takes one image alone up to FOLD_MAX_COUT output channels (one column
+# tile).
+MULTI_MAX_IMAGES, MULTI_MAX_CHUNKS, FOLD_MAX_COUT = 5, 32, 64
+
+
+def _image_eligible(s: torch.Tensor) -> bool:
+    """An f32 3-channel image K5's wgmma kernel reads by TMA: pixel
+    stride 3, 16-byte aligned, rows of 3 W floats 16-byte multiples."""
+    return (s.dtype == torch.float32 and s.shape[3] == 3
+            and pixel_stride(s) == 3 and s.data_ptr() % 16 == 0
+            and (12 * s.shape[2]) % 16 == 0)
+
+
+def _multi_wgmma_eligible(sources: Sequence[torch.Tensor], dtype) -> bool:
+    """Whether K5 takes `sources` on the wgmma kernel: a bf16 conv whose
+    bf16 sources K3's wgmma route takes (`_wgmma_eligible`) and whose f32
+    sources are TMA-legal images (`_image_eligible`)."""
+    if dtype != torch.bfloat16 or len(sources) > MAX_SOURCES:
+        return False
+    images = chunks = 0
+    for s in sources:
+        if s.dtype == torch.bfloat16 and _wgmma_eligible(s):
+            chunks += -(-s.shape[3] // 64)
+        elif _image_eligible(s):
+            images += 1
+        else:
+            return False
+    return (images <= MULTI_MAX_IMAGES
+            and chunks + (images > 0) <= MULTI_MAX_CHUNKS)
+
+
+def _folds(sources, cout: int) -> bool:
+    """K5 runs the folded body: one f32 image alone, one column tile."""
+    return (len(sources) == 1 and sources[0].dtype == torch.float32
+            and cout <= FOLD_MAX_COUT)
+
+
+def multi_pack(weight: torch.Tensor, layout, fold: bool = False,
+               dtype=torch.bfloat16):
+    """(K5's wgmma weight, Kp) for sources of `layout` [(channels,
+    is_f32)]: [9, Cout, Kp], input channels in the kernel's order (the
+    bf16 sources in turn, each from a multiple of 8, then the f32 images'
+    channels together), zeros between; with `fold` (one 3-channel image
+    alone) [1, Cout, 64], column 3 (3 dy + dx) + c for tap (dy, dx) and
+    channel c (27 columns, zeros after). weight: OIHW [Cout, sum C, 3,
+    3]."""
+    cout, cin = weight.shape[:2]
+    if cin != sum(c for c, _ in layout):
+        raise ValueError(f"weight has {cin} input channels, the sources "
+                         f"{sum(c for c, _ in layout)}")
+    w = weight.detach()
+    if fold:
+        if tuple(layout) != ((3, True),):
+            raise ValueError(f"the fold takes one 3-channel image, got "
+                             f"{layout}")
+        pack = torch.zeros(1, cout, 64, dtype=dtype, device=w.device)
+        pack[0, :, :27] = w.permute(0, 2, 3, 1).reshape(cout, 27)
+        return pack, 64
+    offs = [sum(c for c, _ in layout[:i]) for i in range(len(layout))]
+    k, at = 0, {}
+    for i, (c, f32) in enumerate(layout):  # bf16 sources
+        if not f32:
+            at[i], k = k, k + -(-c // 8) * 8
+    for i, (c, f32) in enumerate(layout):  # then the images
+        if f32:
+            at[i], k = k, k + c
+    kp = -(-k // 8) * 8
+    pack = torch.zeros(9, cout, kp, dtype=dtype, device=w.device)
+    taps = w.permute(2, 3, 0, 1).reshape(9, cout, cin)
+    for i, (c, _) in enumerate(layout):
+        pack[:, :, at[i]:at[i] + c] = taps[:, :, offs[i]:offs[i] + c]
+    return pack, kp
+
+
+def _launch_multi_wgmma(sources, weight, bias, slope, fold=None):
+    """The wgmma kernel; `fold` True / False asks for the folded body or
+    the halo kernel's image chunk in place of `_folds` (to time both)."""
+    dev = sources[0].device
+    B, H, W, _ = sources[0].shape
+    cout = weight.shape[0]
+    layout = tuple((s.shape[3], s.dtype == torch.float32) for s in sources)
+    fold = _folds(sources, cout) if fold is None else fold
+    desc, ctot = _describe(sources, torch.bfloat16)
+    if tuple(weight.shape) != (cout, ctot, 3, 3) or weight.device != dev:
+        raise ValueError(f"weight must be [Cout, {ctot}, 3, 3] on {dev}, got "
+                         f"{tuple(weight.shape)} on {weight.device}")
+
+    def make():
+        w, kp = multi_pack(weight, layout, fold)
+        tmap = ctypes.create_string_buffer(128)
+        bn = ctypes.c_int(0)
+        with torch.cuda.device(dev):
+            rc = _build.load_library().conv3x3_wgmma_weight_map(
+                w.data_ptr(), kp, cout, 1, 1 if fold else 9, tmap,
+                ctypes.byref(bn))
+        _build.check(rc, "conv3x3_multi wgmma weight map")
+        return w, tmap, bn.value
+
+    _, tmap, bn = cached_pack(weight, f"3x3 multi wgmma {layout} {fold}",
+                              torch.bfloat16, make)
+    b = _vec(bias, cout, "bias", dev)
+    a = _vec(slope, cout, "slope", dev)
+    out = empty_nhwc(B, H, W, cout, torch.bfloat16, dev)
+    lib = _build.load_library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = lib.conv3x3_multi_wgmma_bf16(
+            desc, len(sources), B, H, W, tmap, bn, int(fold), b.data_ptr(),
+            0 if a is None else a.data_ptr(), out.data_ptr(), cout,
+            out.stride(2), stream)
+    _build.check(rc, "conv3x3_multi wgmma kernel launch")
+    return out
+
+
+def _multi_plain(sources, weight, bias, slope):
+    return conv3x3_plain(sources, weight, bias, slope, 1, torch.bfloat16)
+
+
 def conv3x3_multi(sources: Sequence[torch.Tensor], weight: torch.Tensor,
                   bias: torch.Tensor, slope: Optional[torch.Tensor] = None,
                   dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """K5: stride-1 3x3 conv + bias (+ PReLU) over the channel concat of
-    `sources`, in `dtype` (the first source's type when None)."""
+    `sources`, in `dtype` (the first source's type when None): the wgmma
+    kernel where it takes every source on the card, else the implicit
+    GEMM (or the plain version on the CPU)."""
     sources = list(sources)
     dt = sources[0].dtype if dtype is None else dtype
-    return _run(conv3x3_multi, "conv3x3_multi", sources, weight, bias,
-                slope, 1, dt)
+    if sources[0].device.type != "cuda" or not _multi_wgmma_eligible(
+            sources, dt):
+        return _run(conv3x3_multi, "conv3x3_multi", sources, weight, bias,
+                    slope, 1, dt)
+    conv3x3_multi.calls += 1
+    out = _autograd.launch(_launch_multi_wgmma, _multi_plain, sources,
+                           weight, bias, slope)
+    conv3x3_multi.launches += 1
+    conv3x3_multi.wgmma_launches += 1
+    return out
 
 
 def _launch_pair(x, wa, ba, sa, wb, bb, sb):
@@ -336,7 +520,7 @@ def conv3x3_pair(x: torch.Tensor, wa: torch.Tensor, ba: torch.Tensor,
     conv3x3_pair.calls += 1
     dev = x.device
     if dev.type == "cpu":
-        return conv3x3_pair_plain(x, wa, ba, sa, wb, bb, sb)
+        return card_layout(conv3x3_pair_plain(x, wa, ba, sa, wb, bb, sb))
     if dev.type != "cuda":
         raise ValueError(f"no conv kernel for device {dev}")
     out = _autograd.launch(_launch_pair, conv3x3_pair_plain, x, wa, ba, sa,
@@ -348,5 +532,5 @@ def conv3x3_pair(x: torch.Tensor, wa: torch.Tensor, ba: torch.Tensor,
 for _fn in (conv3x3, conv3x3_s2, conv3x3_multi, conv3x3_pair):
     _fn.calls = 0
     _fn.launches = 0
-for _fn in (conv3x3, conv3x3_s2):
-    _fn.wgmma_launches = 0  # K3 / K4 launches on the wgmma kernel
+for _fn in (conv3x3, conv3x3_s2, conv3x3_multi):
+    _fn.wgmma_launches = 0  # K3 / K4 / K5 launches on the wgmma kernel

@@ -33,7 +33,13 @@ STAGES = ("encoder", "global_motion", "prealign", "local_motion", "enhance",
           "replicated")
 FAMILIES = (  # first match wins
     ("K12 conv pair", r"pair_bf16_kernel|pair_f32_kernel"),
-    ("K3-K6 conv kernels", r"igemm_|conv3x3_wgmma_kernel"),
+    # K5 on K3's wgmma kernel (mode 1) or its folded body; K6 on wgmma
+    ("K5 multi-source conv", r"conv3x3_wgmma_kernel<\d+, ?1, ?1>|"
+                             r"conv3x3_fold_kernel"),
+    ("K6 deconv", r"deconv2x_wgmma_kernel"),
+    # K3 / K4; the implicit GEMM (igemm_*) also runs K5 / K6 where their
+    # sources take no TMA map (f32, odd layouts: off the bf16 main path)
+    ("K3 / K4 conv kernels", r"igemm_|conv3x3_wgmma_kernel"),
     ("K1 GEMM launches", r"::lg::|gemm_f32_kernel"),
     ("K1 / K7 attention launch", r"attn_(mma_)?kernel"),
     ("K2 / K9 / K10 warp", r"warp_narrow_kernel|warp_wide_kernel|"

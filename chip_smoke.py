@@ -18,15 +18,21 @@ Phases, one JSON object per line:
      events, the bound from bytes and operations, and as a yardstick
      the library call that computes the same function (F.grid_sample
      for the warp; for the conv kernels K3-K6 the cuDNN conv + bias +
-     F.prelu that they replace), at every distinct conv site. A bf16 K3
-     or K4 site runs the wgmma + TMA kernel where it takes the map (>= 32
-     channels), and is also timed on the mma.sync implicit GEMM (K3:
-     `conv3x3_multi` with one source, the same `launch_igemm`; K4 both
-     kernels whichever runs, the wgmma form also checked; yardsticks,
-     outside the per-forward launch checks). K1 at the base local,
-     global and enhancement and the lite local and global shapes; in
-     bf16 its three launches are also timed apart, each beside its bound
-     and a library yardstick.
+     F.prelu that they replace), at every distinct conv site, the
+     sources made in the layout the main path hands over. A bf16 site
+     runs the wgmma + TMA kernel where it takes the sources (K3 / K4 from
+     32 channels; K5 and K6 where every source takes a TMA map: every
+     main-path site) and is also timed on the mma.sync implicit GEMM
+     (K3: `conv3x3_multi` with one source, the same `launch_igemm`; K4-K6
+     their implicit-GEMM launch; K4 both kernels whichever runs, the
+     wgmma form also checked; K5's two bodies at the encoder's site and
+     K6's two column tiles, each checked; yardsticks, outside the
+     per-forward launch checks). One K5 and one K6 site in the odd layout
+     (a dense 101- / 389-channel map) must run the implicit GEMM, right.
+     Five repeated launches at each site are bit-equal. K1 at the base
+     local, global and enhancement and the lite local and global shapes;
+     in bf16 its three launches are also timed apart, each beside its
+     bound and a library yardstick.
   4. route kernels: K7 / K8 (window attention + motion, packed and
      head-major; the launch K1 runs too) at the three base window shapes
      and at the lite local and global ones (head dims 28 and 44), f32
@@ -42,8 +48,8 @@ Phases, one JSON object per line:
      (attention_impl="pallas", warp_impl="tiled_blend",
      hcw_fuse_pairs=True) and the fast serving profile (two frames
      each); each run checks the output and the kernel launch counts of
-     every wrapper (set to 0 just before it; the K3 and K4 launches on
-     the wgmma kernel among them) and reports ms/frame.
+     every wrapper (set to 0 just before it; the K3-K6 launches on the
+     wgmma kernels among them) and reports ms/frame.
   6. agreement: seeded f32 models on the card (kernels) against the
      port on the CPU (plain versions) at 256x448: base with global
      motion, lite with and without it, base on the opt-in routes and
@@ -67,7 +73,7 @@ Phases, one JSON object per line:
      spatial on the CPU (<= 1e-3); the ensemble forward on the card
      against the CPU (<= 1e-3).
  10. gradients: every kernel wrapper at a small shape on the card with
-     grad enabled (f32, TF32 off; the wgmma routes of K3, K4 and K1's
+     grad enabled (f32, TF32 off; the wgmma routes of K3-K6 and K1's
      GEMMs in bf16): its output has a grad_fn and its input and
      parameter gradients match autograd
      through the plain version (max |d| <= 1e-5 x the gradient's max
@@ -118,14 +124,29 @@ FAST_PER_FORWARD = dict(PER_FORWARD, flow_warp_pair=8)
 # K3 launches on the wgmma kernel: all but the encoder's 24->24 site
 # (fewer than 32 input channels), which stays on igemm
 WGMMA_PER_FORWARD = {"default": 21, "routes": 13, "fast": 21}
+# the wrappers with a wgmma route; every K5 and K6 launch of the main
+# paths takes it (the main path hands them TMA-legal maps)
+WGMMA_WRAPPERS = ("conv3x3", "conv3x3_s2", "conv3x3_multi", "deconv2x")
+
+
+def reset_wgmma(counters) -> None:
+    for k in WGMMA_WRAPPERS:
+        counters[k].wgmma_launches = 0
+
+
+def read_wgmma(counters, launches: dict) -> None:
+    for k in WGMMA_WRAPPERS:
+        launches[k + "_wgmma"] = counters[k].wgmma_launches
 
 # every conv-kernel site of the base main path at 1088x1920 (global
 # motion on; frames stacked, so the encoder runs on batch 2):
-# (wrapper, site, sources as (B, H, W, C, f32?), Cout, PReLU, launches
-# per forward). Deconv sources are the half-resolution inputs. A conv
-# source whose channel count is not a multiple of 8 is made as the
-# main path gives it: a kernel's output, at a pixel stride rounded up
-# to 8 (the deconvs read dense PReLU or concat outputs).
+# (wrapper, site, sources as (B, H, W, C, f32?[, dense]), Cout, PReLU,
+# launches per forward). Deconv sources are the half-resolution inputs.
+# A source whose channel count is not a multiple of 8 is made as the
+# main path hands it over: a kernel's, PReLU's or the decoder input's
+# map at a pixel stride rounded up to 8. A source marked dense is made
+# at pixel stride C (the layout the deconvs read before the main path
+# padded it; 0 launches a forward): the implicit GEMM must still take it.
 _F, _X = (1088, 1920), (544, 960)
 CONV_SITES = [
     ("conv3x3", "encoder 24->24", [(2, *_F, 24, 0)], 24, 1, 1),
@@ -166,12 +187,32 @@ CONV_SITES = [
      [(2, *_F, 3, 1)], 24, 1, 1),
     ("conv3x3_multi", "refine proj 101 + 5 f32 images -> 64",
      [(1, *_F, 101, 0)] + [(1, *_F, 3, 1)] * 5, 64, 1, 1),
+    ("conv3x3_multi", "refine proj, feature dense at 101 (odd layout)",
+     [(1, *_F, 101, 0, 1)] + [(1, *_F, 3, 1)] * 5, 64, 1, 0),
     ("deconv2x", "decoder 773->389", [(1, 136, 240, 773, 0)], 389, 1, 1),
     ("deconv2x", "decoder 389->197", [(1, 272, 480, 389, 0)], 197, 1, 1),
+    ("deconv2x", "decoder 389->197, dense 389 (odd layout)",
+     [(1, 272, 480, 389, 0, 1)], 197, 1, 0),
     ("deconv2x", "decoder 197->101", [(1, *_X, 197, 0)], 101, 1, 1),
     ("deconv2x", "refine up1 256->128", [(1, 136, 240, 256, 0)], 128, 1, 1),
     ("deconv2x", "refine up2 256->128", [(1, 272, 480, 256, 0)], 128, 1, 1),
     ("deconv2x", "refine up3 128->64", [(1, *_X, 128, 0)], 64, 1, 1),
+    # the lite model's K5 and K6 sites (checks: 0 launches a forward of
+    # the base main path)
+    ("conv3x3_multi", "lite encoder first conv, f32 frames 3->16",
+     [(2, *_F, 3, 1)], 16, 1, 0),
+    ("conv3x3_multi", "lite refine proj 61 + 5 f32 images -> 32",
+     [(1, *_F, 61, 0)] + [(1, *_F, 3, 1)] * 5, 32, 1, 0),
+    ("deconv2x", "lite decoder 453->229", [(1, 136, 240, 453, 0)], 229, 1,
+     0),
+    ("deconv2x", "lite decoder 229->117", [(1, 272, 480, 229, 0)], 117, 1,
+     0),
+    ("deconv2x", "lite decoder 117->61", [(1, *_X, 117, 0)], 61, 1, 0),
+    ("deconv2x", "lite refine up1 128->64", [(1, 136, 240, 128, 0)], 64, 1,
+     0),
+    ("deconv2x", "lite refine up2 128->64", [(1, 272, 480, 128, 0)], 64, 1,
+     0),
+    ("deconv2x", "lite refine up3 64->32", [(1, *_X, 64, 0)], 32, 1, 0),
 ]
 
 
@@ -485,7 +526,11 @@ def phase_kernels(torch, k1_only: bool = False):
 def phase_conv_kernels(torch):
     """K3-K6 against their plain versions at every conv site of the main
     path: f32 max |d| <= 1e-4, bf16 mean |d| <= 1e-3; bf16 times of the
-    kernel, the plain version and the library calls it replaces."""
+    kernel, the plain version and the library calls it replaces. A bf16
+    site runs the wgmma kernel where the main path's layout lets it (K3 /
+    K4 from 32 channels; K5 / K6 where every source takes a TMA map) and
+    is also timed on the implicit GEMM; a site in the odd layout runs the
+    implicit GEMM."""
     import torch.nn.functional as F
 
     from atmvfi_tpu_torch.ops import conv as plain
@@ -521,15 +566,18 @@ def phase_conv_kernels(torch):
                 for s in shapes]
         err = {}
 
-        def layout(x, dt):  # as the main path hands the source over
-            if deconv or x.shape[3] % 8 == 0:
+        odd = any(len(s) > 5 and s[5] for s in shapes)
+
+        def layout(x, dt, s):  # as the main path hands the source over
+            if (len(s) > 5 and s[5]) or x.shape[3] % 8 == 0:
                 return x.to(dt)
             return empty_nhwc(*x.shape, dt, "cuda").copy_(x)
 
         wgmma0 = getattr(kernels[kind], "wgmma_launches", 0)
         repeat_equal = None
         for dt in (torch.float32, bf16):
-            srcs = [x if s[4] else layout(x, dt) for x, s in zip(base, shapes)]
+            srcs = [x if s[4] else layout(x, dt, s)
+                    for x, s in zip(base, shapes)]
             if deconv:
                 run = lambda: deconv_cuda.deconv2x(srcs[0], w, b, a)  # noqa
                 ref = lambda: plain.deconv2x(srcs[0], w, b, a)  # noqa
@@ -593,6 +641,37 @@ def phase_conv_kernels(torch):
                 if not wg_err <= 1e-3:
                     raise AssertionError(f"K4 {site} on wgmma: bf16 mean "
                                          f"|d| {wg_err} > 1e-3")
+            if kind in ("conv3x3_multi", "deconv2x"):
+                # K5 / K6: the parent's implicit GEMM through the same
+                # wrapper code, and the wgmma kernel's other forms
+                if deconv:
+                    igemm = lambda: deconv_cuda._launch(  # noqa: E731
+                        srcs[0], w, b, a)
+                    forms = {f"tile {n}": lambda n=n: deconv_cuda
+                             ._launch_wgmma(srcs[0], w, b, a, n)
+                             for n in (128, 224)}
+                else:
+                    igemm = lambda: conv_cuda._launch(  # noqa: E731
+                        "conv3x3_multi", srcs, w, b, a, 1, bf16)
+                    forms = ({"fold": lambda: conv_cuda._launch_multi_wgmma(
+                                  srcs, w, b, a, True),
+                              "taps": lambda: conv_cuda._launch_multi_wgmma(
+                                  srcs, w, b, a, False)}
+                             if len(srcs) == 1 else {})
+                extra = dict(route=route, igemm_ms=cuda_ms(igemm, reps))
+                if route == "wgmma":
+                    yr = ref()
+                    form_err = {k: (f().float() - yr.float()).abs().mean()
+                                .item() for k, f in forms.items()}
+                    extra.update(form_ms={k: cuda_ms(f, reps)
+                                          for k, f in forms.items()},
+                                 form_bf16_mean_abs_err=form_err)
+                    del yr
+                    bad = {k: e for k, e in form_err.items()
+                           if not e <= 1e-3}
+                    if bad:
+                        raise AssertionError(f"{kind} {site}: bf16 mean |d| "
+                                             f"of the forms {bad} > 1e-3")
         out_px = (4 * B * H * W if deconv
                   else B * (-(-H // stride)) * (-(-W // stride)))
         nbytes = (sum(x.numel() * x.element_size() for x in srcs)
@@ -604,6 +683,7 @@ def phase_conv_kernels(torch):
         (f_max, _), (h_max, h_mean) = err[torch.float32], err[bf16]
         rec = dict(phase="kernel", kernel=kind, site=site,
                    sources=[list(s[:4]) + ["f32" if s[4] else "work"]
+                            + (["dense"] if len(s) > 5 and s[5] else [])
                             for s in shapes], cout=cout, prelu=bool(prelu),
                    per_forward=n, repeat_equal=repeat_equal,
                    f32_max_abs_err=f_max,
@@ -616,8 +696,12 @@ def phase_conv_kernels(torch):
             raise AssertionError(f"{kind} {site}: f32 max |d| {f_max} "
                                  f"(<= 1e-4), bf16 mean |d| {h_mean} "
                                  "(<= 1e-3)")
-        want = "igemm" if cin < conv_cuda.WGMMA_MIN_CHANNELS else "wgmma"
-        if kind in ("conv3x3", "conv3x3_s2") and route != want:
+        if kind in ("conv3x3", "conv3x3_s2"):
+            want = ("igemm" if cin < conv_cuda.WGMMA_MIN_CHANNELS
+                    else "wgmma")
+        else:  # K5, K6: every main-path site on wgmma, the odd layout not
+            want = "igemm" if odd else "wgmma"
+        if route != want:
             raise AssertionError(f"{kind} {site}: bf16 ran on {route}")
         results[kind].append(rec)
         del srcs, base, dense
@@ -891,24 +975,24 @@ def phase_main_path(torch, name: str, routes: dict, fast: bool,
     pairs = smooth_frames(torch, frames + 1, 1080, 1920, seed=3)
     pipe.interpolate(*pairs[0])  # warm-up: cuDNN plans, masks
     torch.cuda.synchronize()
-    k3, k4 = counters["conv3x3"], counters["conv3x3_s2"]
     for fn in counters.values():
         fn.launches = 0
-    k3.wgmma_launches = k4.wgmma_launches = 0
+    reset_wgmma(counters)
     t0 = time.perf_counter()
     outs = [pipe.interpolate(f0, f1) for f0, f1 in pairs[1:]]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
-    launches["conv3x3_wgmma"] = k3.wgmma_launches
-    launches["conv3x3_s2_wgmma"] = k4.wgmma_launches
+    read_wgmma(counters, launches)
     n = len(outs)
     for o in outs:
         if o.shape != (1080, 1920, 3) or o.dtype.name != "uint8":
             raise AssertionError(f"bad output {o.shape} {o.dtype}")
     per_forward = dict(per_forward, conv3x3_wgmma=WGMMA_PER_FORWARD[name],
                        conv3x3_s2_wgmma=per_forward["conv3x3_s2"]
-                       - k4_igemm_per_forward())
+                       - k4_igemm_per_forward(),
+                       conv3x3_multi_wgmma=per_forward["conv3x3_multi"],
+                       deconv2x_wgmma=per_forward["deconv2x"])
     for k in launches:
         if launches[k] != per_forward.get(k, 0) * n:
             raise AssertionError(f"{name}: {k}: {launches[k]} launches in "
@@ -969,12 +1053,13 @@ def spatial_per_frame(n: int) -> dict:
     3, K3 6), the scale-0 pre-align and blend (K10 2) and the refinement
     (K5 1, K4 3, K3 7, K6 3); once on the card, the replicated global
     branch (K1 2, K3 2). All K3 launches but each shard's encoder 24->24
-    run the wgmma kernel, and all K4 launches but those below its
-    channel floor (k4_igemm_per_forward)."""
+    run the wgmma kernel, all K4 launches but those below its channel
+    floor (k4_igemm_per_forward), and every K5 and K6 launch."""
     return {"atm_block": 4 * n + 2, "conv3x3": 20 * n + 2,
             "conv3x3_wgmma": 19 * n + 2, "conv3x3_s2": 7 * n,
             "conv3x3_s2_wgmma": (7 - k4_igemm_per_forward()) * n,
-            "conv3x3_multi": 2 * n, "deconv2x": 6 * n,
+            "conv3x3_multi": 2 * n, "conv3x3_multi_wgmma": 2 * n,
+            "deconv2x": 6 * n, "deconv2x_wgmma": 6 * n,
             "flow_warp_rows": 4 * n, "warp_pair_srcfull": 2 * n}
 
 
@@ -1124,17 +1209,15 @@ def phase_spatial_main_path(torch, n: int, frames: int = 2):
     pairs = smooth_frames(torch, frames + 1, 1080, 1920, seed=7)
     pipe.interpolate(*pairs[0])  # warm-up
     torch.cuda.synchronize()
-    k3, k4 = counters["conv3x3"], counters["conv3x3_s2"]
     for fn in counters.values():
         fn.launches = 0
-    k3.wgmma_launches = k4.wgmma_launches = 0
+    reset_wgmma(counters)
     t0 = time.perf_counter()
     outs = [pipe.interpolate(f0, f1) for f0, f1 in pairs[1:]]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = {k: fn.launches for k, fn in counters.items()}
-    launches["conv3x3_wgmma"] = k3.wgmma_launches
-    launches["conv3x3_s2_wgmma"] = k4.wgmma_launches
+    read_wgmma(counters, launches)
     per_frame = spatial_per_frame(n)
     for o in outs:
         if o.shape != (1080, 1920, 3) or o.dtype.name != "uint8":
@@ -1281,9 +1364,18 @@ def grad_cases(torch):
          (t(1, 12, 20, 16), t(16, 16, 3, 3, scale=0.1), t(16, scale=0.1),
           t(16, scale=0.3), t(8, 16, 3, 3, scale=0.1), t(8, scale=0.1),
           None), 1e-5),
+        # K5's wgmma route: a bf16 map and an f32 image, bf16
+        ("conv3x3_multi (wgmma, bf16)", conv_cuda.conv3x3_multi,
+         lambda s, w, b, a: conv_plain.conv3x3(s, w, b, a, 1),
+         ([t(1, 12, 32, 40, dtype=bf16), t(1, 12, 32, 3, grad=False)],
+          t(16, 43, 3, 3, scale=0.05), t(16, scale=0.1), t(16, scale=0.3)),
+         1e-2),
         ("deconv2x", deconv_cuda.deconv2x, conv_plain.deconv2x,
          (t(1, 8, 12, 16), t(16, 8, 2, 2, scale=0.1), t(8, scale=0.1),
           t(8, scale=0.3)), 1e-5),
+        ("deconv2x (wgmma, bf16)", deconv_cuda.deconv2x, conv_plain.deconv2x,
+         (t(1, 8, 12, 40, dtype=bf16), t(40, 20, 2, 2, scale=0.1),
+          t(20, scale=0.1), t(20, scale=0.3)), 1e-2),
         ("atm_block", attention_cuda.atm_block,
          attn_plain.atm_block_reference,
          (t(4, 64, C), t(C, C, scale=0.05), t(2 * C, C, scale=0.05),
@@ -1421,12 +1513,26 @@ def kernel_line(results, launches):
                        "implicit GEMM (f32, and bf16 below 32 input "
                        "channels)", "atmvfi_tpu_torch/csrc/conv3x3.cu",
                        "atmvfi_tpu/ops/conv_pallas.py:792"),
-        "conv3x3_multi": ("K5 multi-source conv3x3 + bias + PReLU",
-                          "atmvfi_tpu_torch/csrc/conv3x3.cu",
+        "conv3x3_multi": ("K5 multi-source conv3x3 + bias + PReLU, mma.sync "
+                          "implicit GEMM (f32, and sources no TMA map "
+                          "takes)", "atmvfi_tpu_torch/csrc/conv3x3.cu",
                           "atmvfi_tpu/ops/conv_pallas.py:363"),
-        "deconv2x": ("K6 deconv2x + bias + PReLU",
+        "conv3x3_multi_wgmma": ("K5 multi-source conv3x3 + bias + PReLU, "
+                                "bf16: K3's wgmma kernel with one TMA map "
+                                "per source (f32 images rounded into one "
+                                "k16 slice a tap), or its folded body "
+                                "for one image (K = 27 taps x channels)",
+                                "atmvfi_tpu_torch/csrc/conv3x3_wgmma.cu",
+                                "atmvfi_tpu/ops/conv_pallas.py:363"),
+        "deconv2x": ("K6 deconv2x + bias + PReLU, mma.sync implicit GEMM "
+                     "(f32, and maps no TMA map takes)",
                      "atmvfi_tpu_torch/csrc/deconv2x.cu",
                      "atmvfi_tpu/ops/deconv_pallas.py:102"),
+        "deconv2x_wgmma": ("K6 deconv2x + bias + PReLU, bf16: one GEMM on "
+                           "wgmma + TMA, columns (dy, dx, o), stmatrix-"
+                           "staged 16-byte stores at the output pixels",
+                           "atmvfi_tpu_torch/csrc/deconv2x_wgmma.cu",
+                           "atmvfi_tpu/ops/deconv_pallas.py:102"),
         "window_attention": ("K7 window attention + motion, packed "
                              "(bf16: tensor-core attn_mma_kernel; f32: "
                              "scalar attn_kernel)",
@@ -1454,25 +1560,23 @@ def kernel_line(results, launches):
                            "atmvfi_tpu_torch/csrc/warp.cu",
                            "atmvfi_tpu/ops/warp.py:137"),
     }
-    # K3's and K4's sites split by the route they take (the channel floor)
-    route_splits = ("conv3x3", "conv3x3_wgmma", "conv3x3_s2",
-                    "conv3x3_s2_wgmma")
-    k3, k4 = results["conv3x3"], results["conv3x3_s2"]
+    # K3-K6 sites split by the route they take (K3 / K4: the channel
+    # floor; K5 / K6: the sources' layout)
+    splits = ("conv3x3", "conv3x3_s2", "conv3x3_multi", "deconv2x")
     results = dict(results, k11=results["flow_warp_pair"]
-                   + results["flow_warp"],
-                   conv3x3=[r for r in k3 if r["route"] == "igemm"],
-                   conv3x3_wgmma=[r for r in k3 if r["route"] == "wgmma"],
-                   conv3x3_s2=[r for r in k4 if r["route"] == "igemm"],
-                   conv3x3_s2_wgmma=[r for r in k4 if r["route"] == "wgmma"])
-    launches = dict(launches, conv3x3=launches["conv3x3"]
-                    - launches["conv3x3_wgmma"],
-                    conv3x3_s2=launches["conv3x3_s2"]
-                    - launches["conv3x3_s2_wgmma"])
+                   + results["flow_warp"])
+    launches = dict(launches)
+    for k in splits:
+        recs = results[k]
+        results[k] = [r for r in recs if r["route"] == "igemm"]
+        results[k + "_wgmma"] = [r for r in recs if r["route"] == "wgmma"]
+        launches[k] = launches[k] - launches[k + "_wgmma"]
+    route_splits = splits + tuple(k + "_wgmma" for k in splits)
     out = []
     for k, (name, src, rep) in meta.items():
         recs = results[k]
-        if not recs and k in route_splits:
-            continue  # a conv kernel's route that no site takes
+        if k in route_splits and not any(r["per_forward"] for r in recs):
+            continue  # a conv kernel's route that no main-path site takes
         if not any(r.get("per_forward", 1) for r in recs):
             raise AssertionError(f"{k}: no record of a launch on the path")
         base = [r for r in recs if r.get("dtype") == "bf16"
@@ -1505,10 +1609,12 @@ def kernel_line(results, launches):
         if k in ("window_attention", "window_attention_heads",
                  "conv3x3_pair"):
             entry["ms_over_library"] = entry["ms"] / lib
-        if k in ("conv3x3_wgmma", "conv3x3_s2_wgmma"):
+        if k.endswith("_wgmma"):
             entry["igemm_ms"] = avg("igemm_ms")
             entry["ms_over_igemm"] = entry["ms"] / entry["igemm_ms"]
-            entry.update(wgmma_resources())
+            entry.update(wgmma_resources() if k != "deconv2x_wgmma" else
+                         {"registers_by_bnw": ptxas_registers(
+                             r"deconv2x_wgmma_kernelILi(\d+)E", "BNW {}")})
         if k == "atm_block":  # the three launches apart, base bf16
             entry["launch_ms"] = [
                 sum(r["launches"][i]["ms"] * w for r, w in used) / n
@@ -1532,7 +1638,10 @@ def wgmma_resources() -> dict:
 
     lib = _build.load_library()
     return {"registers_by_bn": ptxas_registers(
-                r"conv3x3_wgmma_kernelILi(\d+)ELi(\d+)E", "BN {} stride {}"),
+                r"conv3x3_wgmma_kernelILi(\d+)ELi(\d+)ELi(\d+)E",
+                "BN {} stride {} mode {}"),
+            "fold_registers_by_bn": ptxas_registers(
+                r"conv3x3_fold_kernelILi(\d+)E", "BN {}"),
             "smem_bytes_by_bn": {f"BN {b} stride {st}":
                                  lib.conv3x3_wgmma_smem_bytes(b, st)
                                  for b in (16, 64, 104, 128, 200, 256)
