@@ -60,13 +60,22 @@
 // Kernel K9 (`warp_blend_f32`) replaces the TPU's fused dual warp +
 // occlusion blend `flow_warp_blend_tiled` (`_kernel_blend`):
 // I_t = occ * warp(img0, flow0) + (1 - occ) * warp(img1, flow1) on f32
-// NHWC images, one thread per pixel. The two warped frames never reach
-// device memory: it reads each image's taps, both flows and occ, and
-// writes I_t once: 56 of the 104 bytes per pixel (C = 3) that the pair
-// warp plus the separate blend move. Bound: bytes. The blend uses the plain
-// version's rounded operations in its order (occ*w0, 1-occ, (1-occ)*w1,
-// the sum; no FMA contraction), so I_t is bit-equal to the K2 pair
-// followed by the eager blend.
+// NHWC images (C <= 4). The two warped frames never reach device
+// memory: it reads each image's taps, both flows and occ, and writes I_t
+// once: 56 of the 104 bytes per pixel (C = 3) that the pair warp plus
+// the separate blend move. Bound: bytes. It is the narrow form with the
+// blend as its epilogue: 4 pixels a thread on maps that fill the card (1
+// on smaller ones), the flows (float2) and occ loaded coalesced for all
+// of them first, the block's blended pixels staged in shared memory and
+// written as contiguous 16-byte pieces. What remains is the gathers'
+// (2.1x its bound on a smooth 1088x1920 flow field, 3.6x on random
+// per-pixel flows): 16-byte loads of a tap row's 6 floats, 32-bit tap
+// offsets and 64 x 16-pixel tiles (for L1 reuse of tap rows across
+// output rows) each moved it by 7 % or less on random flows and not at
+// all, or the wrong way, on smooth ones, so the gathers stay scalar.
+// The blend uses the plain version's rounded operations in its order
+// (occ*w0, 1-occ, (1-occ)*w1, the sum; no FMA contraction), so I_t is
+// bit-equal to the K2 pair followed by the eager blend.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
@@ -282,25 +291,61 @@ __global__ void __launch_bounds__(WIDE_THREADS)
   }
 }
 
-__global__ void warp_blend_kernel(const float* __restrict__ img0,
-                                  const float* __restrict__ img1,
-                                  const float* __restrict__ flow0,
-                                  const float* __restrict__ flow1,
-                                  const float* __restrict__ occ,
-                                  float* __restrict__ out, int B, int H,
-                                  int W, int C, int64_t ps) {
-  const int n = B * H * W;
+// K9: the narrow form with the occlusion blend as its epilogue. PPT
+// pixels a thread; both flows (float2) and occ are loaded coalesced for
+// all of them first, then pixel by pixel the taps of both sources, their
+// gathers, the blend into the block's shared-memory tile, and the tile
+// out as contiguous 16-byte pieces.
+struct BlendArgs {
+  const float* img0;
+  const float* img1;
+  const float* flow0;
+  const float* flow1;
+  const float* occ;
+  float* out;
+};
+
+template <int PPT, int C>
+__global__ void __launch_bounds__(NARROW_THREADS)
+    warp_blend_kernel(BlendArgs a, int n, int H, int W, int64_t ps) {
+  constexpr int PIX = NARROW_THREADS * PPT;
+  __shared__ __align__(16) float tile[PIX * C];
   const Rows rows = {H, H, 0, 0};
-  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n;
-       p += gridDim.x * blockDim.x) {
-    const Taps t0 = make_taps(load_flow(flow0, p), p, rows, W, ps);
-    const Taps t1 = make_taps(load_flow(flow1, p), p, rows, W, ps);
-    const float o = occ[p];
-    const float r = __fsub_rn(1.0f, o);
-    for (int c = 0; c < C; ++c)
-      out[(int64_t)p * C + c] =
-          __fadd_rn(__fmul_rn(o, tap_sum(img0, t0, c)),
-                    __fmul_rn(r, tap_sum(img1, t1, c)));
+  for (int base = blockIdx.x * PIX; base < n; base += gridDim.x * PIX) {
+    float2 f0[PPT], f1[PPT];
+    float o[PPT];
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      const int p = base + k * NARROW_THREADS + threadIdx.x;
+      const bool in = p < n;
+      f0[k] = in ? load_flow(a.flow0, p) : make_float2(0.f, 0.f);
+      f1[k] = in ? load_flow(a.flow1, p) : make_float2(0.f, 0.f);
+      o[k] = in ? a.occ[p] : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      const int p = base + k * NARROW_THREADS + threadIdx.x;
+      const int q = p < n ? p : 0;
+      const Taps t0 = make_taps(f0[k], q, rows, W, ps);
+      const Taps t1 = make_taps(f1[k], q, rows, W, ps);
+      const float r = __fsub_rn(1.0f, o[k]);
+      float* dst = tile + (k * NARROW_THREADS + threadIdx.x) * C;
+#pragma unroll
+      for (int c = 0; c < C; ++c)
+        dst[c] = __fadd_rn(__fmul_rn(o[k], tap_sum(a.img0, t0, c)),
+                           __fmul_rn(r, tap_sum(a.img1, t1, c)));
+    }
+    __syncthreads();
+    const int nel = min(PIX, n - base) * C;
+    // 16-byte aligned: base is a multiple of 256 pixels, out of 16
+    float* dst = a.out + (int64_t)base * C;
+    const int nvec = nel / 4;
+    for (int v = threadIdx.x; v < nvec; v += NARROW_THREADS)
+      reinterpret_cast<float4*>(dst)[v] =
+          reinterpret_cast<const float4*>(tile)[v];
+    for (int e = nvec * 4 + threadIdx.x; e < nel; e += NARROW_THREADS)
+      dst[e] = tile[e];
+    __syncthreads();
   }
 }
 
@@ -364,6 +409,18 @@ int launch(const void* img0, const void* img1, const void* flow0,
   return (int)cudaGetLastError();
 }
 
+template <int C>
+void launch_blend(const BlendArgs& a, int n, int H, int W, int64_t ps,
+                  cudaStream_t st) {
+  if (n >= 132 * 4 * NARROW_THREADS) {  // >= one 4-pixel block per SM
+    warp_blend_kernel<4, C><<<grid_blocks(n, 4 * NARROW_THREADS),
+                              NARROW_THREADS, 0, st>>>(a, n, H, W, ps);
+  } else {
+    warp_blend_kernel<1, C><<<grid_blocks(n, NARROW_THREADS),
+                              NARROW_THREADS, 0, st>>>(a, n, H, W, ps);
+  }
+}
+
 }  // namespace
 
 extern "C" int warp_f32(const void* img0, const void* img1,
@@ -412,23 +469,30 @@ extern "C" int flow_warp_rows_bf16(const void* img, const void* flow,
                                stream);
 }
 
+
 extern "C" int warp_blend_f32(const void* img0, const void* img1,
                               const void* flow0, const void* flow1,
                               const void* occ, void* out, int B, int H, int W,
                               int C, int64_t ps, void* stream) {
-  if (B < 1 || H < 1 || W < 1 || C < 1 || ps < C ||
+  if (B < 1 || H < 1 || W < 1 || C < 1 || C > 4 || ps < C ||
       (int64_t)B * H * W >= (1LL << 31))
     return (int)cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(flow0) % 8 ||
-      reinterpret_cast<uintptr_t>(flow1) % 8)
+      reinterpret_cast<uintptr_t>(flow1) % 8 ||
+      reinterpret_cast<uintptr_t>(out) % 16)  // float2 loads, float4 stores
     return (int)cudaErrorMisalignedAddress;
-  const int threads = 256;
-  warp_blend_kernel<<<(unsigned)grid_blocks((int64_t)B * H * W, threads),
-                      threads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const BlendArgs a = {
       static_cast<const float*>(img0), static_cast<const float*>(img1),
       static_cast<const float*>(flow0), static_cast<const float*>(flow1),
-      static_cast<const float*>(occ), static_cast<float*>(out), B, H, W, C,
-      ps);
+      static_cast<const float*>(occ), static_cast<float*>(out)};
+  const int n = B * H * W;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (C) {
+    case 1: launch_blend<1>(a, n, H, W, ps, st); break;
+    case 2: launch_blend<2>(a, n, H, W, ps, st); break;
+    case 3: launch_blend<3>(a, n, H, W, ps, st); break;
+    default: launch_blend<4>(a, n, H, W, ps, st); break;
+  }
   return (int)cudaGetLastError();
 }
 

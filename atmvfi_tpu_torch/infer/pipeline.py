@@ -7,12 +7,14 @@ a device grid (`parallel.make_mesh`): the row-sharded schedule
 'spatial' shard, the batch split (`parallel.make_dp_forward`) for one
 with only 'data' shards. Frames go to the device once and stay there
 between the steps of a stream and of the 4x / 8x recursion; only uint8
-frames cross to the host. The default working type is bf16, as in the
+frames cross to the host. A stream may pack several consecutive pairs
+into one forward (`interpolate_stream_batched`), and the attention
+window sizes may change at run time (`set_window_sizes`). The default working type is bf16, as in the
 JAX pipeline; `dtype=torch.float32` is the parity mode.
 """
 from __future__ import annotations
 
-from typing import Iterable, List, Optional, Union
+from typing import Iterable, Iterator, List, Optional, Union
 
 import numpy as np
 import torch
@@ -98,15 +100,36 @@ class InterpolationPipeline:
         self.ensemble = ensemble_global_motion
         self.pad_divisor = pad_divisor
         self.mesh = mesh
-        if n_sp > 1:
-            self._forward = make_spatial_forward(
-                self.net, mesh, global_motion=global_motion,
-                ensemble_global_motion=ensemble_global_motion)
-        elif n_dp > 1:
-            if ensemble_global_motion:
-                raise NotImplementedError("the batch split runs without "
-                                          "the ensemble")
-            self._forward = make_dp_forward(self.net, mesh, global_motion)
+        self._n_sp, self._n_dp = n_sp, n_dp
+        if n_dp > 1 and ensemble_global_motion:
+            raise NotImplementedError("the batch split runs without the "
+                                      "ensemble")
+        self._forward = self._mesh_forward()
+
+    def _mesh_forward(self):
+        """The mesh's serving schedule around `self.net` (None without
+        one): row-sharded over 'spatial' shards, else the batch split."""
+        if self._n_sp > 1:
+            return make_spatial_forward(
+                self.net, self.mesh, global_motion=self.global_motion,
+                ensemble_global_motion=self.ensemble)
+        if self._n_dp > 1:
+            return make_dp_forward(self.net, self.mesh, self.global_motion)
+        return None
+
+    def set_window_sizes(self, local: Optional[int] = None,
+                         global_: Optional[int] = None,
+                         enhance: Optional[int] = None) -> None:
+        """Other attention window sizes, the weights kept: a new
+        `Network` from `cfg.with_windows(...)` on the same device takes
+        the current weights (strict), and the mesh schedule is rebuilt
+        around it. The kernels' weight packs are cached per weight
+        tensor, so the new network's are made anew."""
+        self.cfg = self.cfg.with_windows(local, global_, enhance)
+        net = Network(self.cfg).to(self.device).eval()
+        net.load_state_dict(self.net.state_dict(), strict=True)
+        self.net = net
+        self._forward = self._mesh_forward()
 
     @property
     def shard_devices(self) -> List[torch.device]:
@@ -145,24 +168,78 @@ class InterpolationPipeline:
         return self._to_uint8(padder.unpad(self.interpolate_device(x0, x1)))
 
     def interpolate_stream(self, frames: Iterable[np.ndarray],
-                           factor: int = 2) -> Iterable[np.ndarray]:
+                           factor: int = 2) -> Iterator[np.ndarray]:
         """Nx interpolation over uint8 frames: yields `factor` frames per
-        input step, then the last source frame."""
+        input step, then the last source frame; one pair a forward."""
+        return self.interpolate_stream_batched(frames, factor, batch=1)
+
+    def interpolate_stream_batched(self, frames: Iterable[np.ndarray],
+                                   factor: int = 2,
+                                   batch: int = 4) -> Iterator[np.ndarray]:
+        """`interpolate_stream` with `batch` consecutive pairs in one
+        forward: the same frames in the same order, within the float
+        noise of another batch size (sums in another order)."""
+        return (self._to_uint8(x) for x in
+                self.interpolate_stream_device(frames, factor, batch))
+
+    def interpolate_stream_device(self, frames: Iterable[np.ndarray],
+                                  factor: int = 2,
+                                  batch: int = 1) -> Iterator[torch.Tensor]:
+        """The frames of `interpolate_stream_batched` as f32 [1, H, W, 3]
+        tensors in [0, 1] on the device, before the rounding to uint8.
+
+        Each frame is uploaded once. `batch` pairs go to one forward as
+        [batch, H, W, 3] frames. Once a full batch has run, a short tail
+        is padded to `batch` pairs by repeating the last one and the
+        extra outputs are dropped; a stream shorter than one batch runs
+        at its own size. Raises ValueError at the call for a factor
+        other than 2, 4, 8, for batch < 1, for batch > 1 on a
+        row-sharded mesh (one pair a forward) and for a batch that does
+        not divide over a mesh's 'data' shards."""
         if factor not in (2, 4, 8):
             raise ValueError("factor must be 2, 4 or 8")
-        prev = None
+        if batch < 1:
+            raise ValueError(f"batch must be >= 1, got {batch}")
+        if batch > 1 and self._n_sp > 1:
+            raise ValueError("row-sharded serving takes one pair a forward: "
+                             f"batch must be 1, got {batch}")
+        if batch % self._n_dp:
+            raise ValueError(f"batch {batch} must divide over the "
+                             f"{self._n_dp} 'data' shards")
+        return self._stream(frames, factor, batch)
+
+    def _stream(self, frames, factor: int, batch: int):
         padder = None
+        pend: List[torch.Tensor] = []  # padded device frames, oldest first
+        full = False  # whether a full batch has run
         for frame in frames:
             x = self._upload(frame)
             if padder is None:
                 padder = InputPadder(x.shape, divisor=self.pad_divisor)
-            x = padder.pad(x)
-            if prev is not None:
-                for mid in self._recursive_midpoints(prev, x, factor):
-                    yield self._to_uint8(padder.unpad(mid))
-            prev = x
-        if prev is not None:
-            yield self._to_uint8(padder.unpad(prev))
+            pend.append(padder.pad(x))
+            if len(pend) == batch + 1:
+                yield from self._batch_out(pend[:-1], pend[1:], batch,
+                                           factor, padder)
+                full = True
+                pend = pend[-1:]
+        if len(pend) >= 2:
+            k = len(pend) - 1
+            a, b = pend[:-1], pend[1:]
+            if full:
+                a += [pend[-2]] * (batch - k)
+                b += [pend[-1]] * (batch - k)
+            yield from self._batch_out(a, b, k, factor, padder)
+        if pend:
+            yield padder.unpad(pend[-1])
+
+    def _batch_out(self, a: List[torch.Tensor], b: List[torch.Tensor],
+                   k: int, factor: int, padder: InputPadder):
+        """One forward of the pairs (a[i], b[i]); the frames of the first
+        k pairs, pair by pair."""
+        seq = self._recursive_midpoints(torch.cat(a), torch.cat(b), factor)
+        for i in range(k):
+            for f in seq:
+                yield padder.unpad(f[i:i + 1])
 
     def _recursive_midpoints(self, a, b, factor: int) -> List[torch.Tensor]:
         """`a`, then the frames strictly between a and b, in order."""

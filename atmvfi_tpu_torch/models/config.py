@@ -113,6 +113,23 @@ class ATMVFIConfig:
     def with_dtype(self, dtype: torch.dtype) -> "ATMVFIConfig":
         return dataclasses.replace(self, dtype=dtype)
 
+    def with_windows(self, local: int = None, global_: int = None,
+                     enhance: int = None) -> "ATMVFIConfig":
+        """The same model with other attention window sizes (the ones
+        given; None keeps a field). Parameter shapes do not depend on
+        the windows, so the same weights load into either network. On
+        the card a window holds at most 12 x 12 tokens
+        (`ops.attention_cuda.MAX_N`); a larger one raises in the kernel
+        wrapper."""
+        kw = {}
+        if local is not None:
+            kw["local_window"] = local
+        if global_ is not None:
+            kw["global_window"] = global_
+        if enhance is not None:
+            kw["enhance_window"] = enhance
+        return dataclasses.replace(self, **kw)
+
 
 BASE = ATMVFIConfig()
 

@@ -266,17 +266,22 @@ class Mlp(nn.Module):
 
 
 # ---- window attention ------------------------------------------------
+# The cached tensors are made outside inference mode: one made by a
+# serving forward (under `inference_mode`) could not be saved for backward
+# by a later forward with grad on the same device.
 @functools.lru_cache(maxsize=32)
 def _device_mask(h: int, w: int, window: int, shift: int,
                  device: torch.device) -> Optional[torch.Tensor]:
     """The [nW, N, N] f32 mask of one (resolution, window, shift), kept on
     its device so a forward pays no host-to-device copy for it."""
-    return ops.attn_mask_for(h, w, window, shift, device)
+    with torch.inference_mode(False):
+        return ops.attn_mask_for(h, w, window, shift, device)
 
 
 @functools.lru_cache(maxsize=8)
 def _device_rel(window: int, device: torch.device) -> torch.Tensor:
-    return ops.relative_coords(window, device)
+    with torch.inference_mode(False):
+        return ops.relative_coords(window, device)
 
 
 class AttentionToMotion(nn.Module):

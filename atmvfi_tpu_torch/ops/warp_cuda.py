@@ -129,6 +129,8 @@ def _launch_blend(im0, im1, flow0, flow1, occ):
         raise ValueError("warp blend operands must match in shape and "
                          "pixel stride")
     B, H, W, C = im0.shape
+    if C > 4:
+        raise ValueError(f"warp blend kernel takes C <= 4 channels, got {C}")
     if (occ.dtype != torch.float32 or tuple(occ.shape) != (B, H, W, 1)
             or not occ.is_contiguous() or occ.device != im0.device):
         raise ValueError(f"occlusion must be contiguous f32 [{B}, {H}, {W}, "
@@ -148,7 +150,8 @@ def _launch_blend(im0, im1, flow0, flow1, occ):
 def flow_warp_blend(im0: torch.Tensor, im1: torch.Tensor, flow0: torch.Tensor,
                     flow1: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
     """K9: occ * warp(im0, flow0) + (1 - occ) * warp(im1, flow1) on f32
-    images, flows and occlusion [B, H, W, 1]; one f32 output."""
+    images of C <= 4 channels, flows and occlusion [B, H, W, 1]; one f32
+    output."""
     flow_warp_blend.calls += 1
     if im0.device.type == "cpu":
         return flow_warp_blend_plain(im0, im1, flow0, flow1, occ)

@@ -6,6 +6,7 @@
     python3 chip_smoke.py --conv-sites   # the build and phase 3's convs
     python3 chip_smoke.py --route-kernels   # the build and phase 4 alone
     python3 chip_smoke.py --gradients   # the build and phase 10 alone
+    python3 chip_smoke.py --stream   # the build and phase 5b alone
 
 Phases, one JSON object per line:
   1. device: the card (nvidia-smi name and power limit), torch and CUDA
@@ -36,7 +37,8 @@ Phases, one JSON object per line:
   4. route kernels: K7 / K8 (window attention + motion, packed and
      head-major; the launch K1 runs too) at the three base window shapes
      and at the lite local and global ones (head dims 28 and 44), f32
-     and bf16, K9 (fused warp + blend) at the five blend sites and K12
+     and bf16, K9 (fused warp + blend) at the five blend sites (also
+     bit-equal to the K2 pair + eager blend, five repeats bit-equal) and K12
      (fused conv pair) at its four sites,
      against their plain versions, with CUDA-event times, bounds, the
      plain version's time and yardsticks (scaled_dot_product_attention,
@@ -50,6 +52,18 @@ Phases, one JSON object per line:
      each); each run checks the output and the kernel launch counts of
      every wrapper (set to 0 just before it; the K3-K6 launches on the
      wgmma kernels among them) and reports ms/frame.
+ 5b. stream: InterpolationPipeline.interpolate_stream_batched (base,
+     bf16, default routes, global motion on) over 9 smooth 1080x1920
+     frames, factor 2, at batch 1, 2 and 4: ms per output frame (host
+     clock, after an untimed run at the same batch), peak device memory,
+     the launches of every wrapper (set to 0 just before the timed run:
+     PER_FORWARD per forward call at every batch), I_t against batch 1
+     (mean |d| <= 1e-3 per frame); f32 at 256x448, 6 frames, batch 2
+     and 3 (padded tails): max |d| <= 1e-4 against batch 1 on the card
+     and <= 1e-3 against the CPU port's batched stream;
+     set_window_sizes(6, 8) card vs CPU (f32, <= 1e-3), back to (8, 12)
+     bit-equal uint8; the CLI's --video on a 5-frame C420 .y4m (lite,
+     256x448, --batch 2): 9 frames at twice the frame rate.
   6. agreement: seeded f32 models on the card (kernels) against the
      port on the CPU (plain versions) at 256x448: base with global
      motion, lite with and without it, base on the opt-in routes and
@@ -85,7 +99,8 @@ the last line {"ok": true, "device": {...}}. With --conv-sites it runs
 only the build and the K3-K6 sites and prints their times as one JSON
 line (to compare two checkouts in one call); with --k1-launches only
 the build and the K1 cases of phase 3; with --route-kernels only the
-build and phase 4; with --gradients only the build and phase 10.
+build and phase 4; with --gradients only the build and phase 10; with
+--stream only the build and phase 5b.
 Any failed phase raises and the script exits non-zero; without a CUDA
 device, or without the repo beside it, it exits non-zero before
 printing any result.
@@ -257,6 +272,36 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return a.elapsed_time(b) / reps
 
 
+def graph_ms(fn, reps: int = 20, replays: int = 10) -> float:
+    """Mean device ms of fn(): `reps` calls captured in one CUDA graph,
+    replayed `replays` times between CUDA events, so that the host's
+    time per call (the Python wrapper) is not in the reading."""
+    import torch
+
+    with torch.no_grad():
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm-up outside the capture
+            for _ in range(2):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(replays):
+            graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+    del graph
+    return a.elapsed_time(b) / (reps * replays)
+
+
 def bound_ms(nbytes: float, flops: float, dtype: str):
     t_mem = nbytes / HBM_BYTES_PER_S
     t_ops = flops / PEAK_FLOPS[dtype]
@@ -273,6 +318,19 @@ def edge_flow(torch, g, B: int, H: int, W: int, mag: float):
     f[:, :8, :, 1] -= mag      # top
     f[:, -8:, :, 1] += mag     # bottom
     return f.contiguous()
+
+
+def smooth_flow(torch, g, B: int, H: int, W: int, mag: float):
+    """Smooth random flows of magnitude up to `mag` (a coarse random
+    field, bicubic-upsampled), as a motion field is: neighbouring pixels
+    sample neighbouring taps."""
+    import torch.nn.functional as F
+
+    coarse = torch.rand(B, 2, H // 32 + 2, W // 32 + 2, generator=g,
+                        device="cuda") * 2 - 1
+    f = F.interpolate(coarse, size=(H, W), mode="bicubic",
+                      align_corners=False) * mag
+    return f.permute(0, 2, 3, 1).contiguous()
 
 
 def grid_of(torch, flow):
@@ -721,6 +779,9 @@ ATTN_SITES = [("local", 136, 240, 8, 4, True, 384),
 # K9 blend sites (1/16 ... full resolution) and K12 sites: (site, H, W,
 # Cin, Cmid, Cout, PReLU after conv_b)
 BLEND_SITES = [(1088 >> k, 1920 >> k) for k in (4, 3, 2, 1, 0)]
+# K9 checks at other shapes: (B, H, W, C, pixel stride)
+K9_ODD_SHAPES = [(2, 37, 70, 3, 3), (1, 301, 451, 3, 4), (3, 33, 65, 1, 1),
+                 (2, 40, 64, 4, 4), (4, 150, 230, 3, 3), (2, 200, 344, 3, 3)]
 PAIR_SITES = [("decoder 1/4", 272, 480, 389, 389, 389, False),
               ("decoder 1/2", 544, 960, 197, 197, 197, False),
               ("decoder 1/1", 1088, 1920, 101, 101, 101, False),
@@ -831,29 +892,81 @@ def phase_route_kernels(torch):
             w0, w1 = warp_cuda.flow_warp_pair(im0, im1, f0, f1)
             return occ * w0 + (1 - occ) * w1
 
-        out = warp_cuda.flow_warp_blend(*args)
-        ref = warp_plain.flow_warp_blend(*args)
+        with torch.no_grad():
+            out = warp_cuda.flow_warp_blend(*args)
+            ref = warp_plain.flow_warp_blend(*args)
+            pair = k2_pair_blend()
+            repeats = all(torch.equal(warp_cuda.flow_warp_blend(*args), out)
+                          for _ in range(5))
         torch.cuda.synchronize()
         err = (out - ref).abs().max().item()
-        pair_err = (k2_pair_blend() - ref).abs().max().item()
+        pair_err = (pair - ref).abs().max().item()
+        pair_equal = torch.equal(out, pair)
         reps = 50 if H >= 544 else 200
         ms = cuda_ms(lambda: warp_cuda.flow_warp_blend(*args), reps)
         plain_ms = cuda_ms(lambda: warp_plain.flow_warp_blend(*args), reps)
         lib_ms = cuda_ms(library, reps)
         pair_ms = cuda_ms(k2_pair_blend, reps)
+        # device time alone (CUDA graph), on these flows and on smooth
+        # ones (the main path's kind: coherent taps)
+        dev = {"k9": graph_ms(lambda: warp_cuda.flow_warp_blend(*args)),
+               "library": graph_ms(library),
+               "k2_pair_blend": graph_ms(k2_pair_blend)}
+        f0, f1 = (smooth_flow(torch, g, 1, H, W, 40.0 * H / 1088)
+                  for _ in range(2))
+        grids = [grid_of(torch, f) for f in (f0, f1)]
+        args = (im0, im1, f0, f1, occ)
+        with torch.no_grad():
+            smooth_err = (warp_cuda.flow_warp_blend(*args)
+                          - warp_plain.flow_warp_blend(*args)).abs().max()
+        dev.update({
+            "k9_smooth": graph_ms(lambda: warp_cuda.flow_warp_blend(*args)),
+            "library_smooth": graph_ms(library),
+            "k2_pair_blend_smooth": graph_ms(k2_pair_blend)})
+        err = max(err, smooth_err.item())
         nbytes = H * W * (2 * 3 * 4 + 2 * 2 * 4 + 4 + 3 * 4)
         b_ms, b_by = bound_ms(nbytes, H * W * (14 * 3 + 30), "f32")
         rec = dict(phase="kernel", kernel="K9 flow_warp_blend",
                    shape=[1, H, W, 3], dtype="f32", per_forward=1,
                    max_abs_err=err, k2_pair_blend_max_abs_err=pair_err,
-                   ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   library="2 x grid_sample + blend",
+                   bit_equal_to_k2_pair_blend=pair_equal,
+                   repeats_bit_equal=repeats, ms=ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, library="2 x grid_sample + blend",
                    k2_pair_blend_ms=pair_ms, bound_ms=b_ms, bound_by=b_by,
-                   bytes=nbytes)
+                   ms_over_bound=ms / b_ms, bytes=nbytes,
+                   device_ms=dev, device_ms_over_bound={
+                       k: v / b_ms for k, v in dev.items()
+                       if k.startswith("k9")},
+                   registers=ptxas_registers(
+                       r"warp_blend_kernelILi(\d+)ELi(\d+)E", "PPT {} C {}"))
         emit(rec)
-        if not err <= 1e-6:
-            raise AssertionError(f"K9 {H}x{W}: max |d| {err} > 1e-6")
+        if not (err <= 1e-6 and pair_equal and repeats):
+            raise AssertionError(f"K9 {H}x{W}: max |d| {err} (<= 1e-6), "
+                                 f"bit-equal to the K2 pair + blend: "
+                                 f"{pair_equal}, repeats bit-equal: "
+                                 f"{repeats}")
         results["flow_warp_blend"].append(rec)
+
+    # K9 off the main path's shapes: batches, ragged tiles, rows that do
+    # not start 16-byte aligned, a pixel stride above C, other C
+    for B, H, W, C, ps in K9_ODD_SHAPES:
+        im0, im1 = (torch.rand(B, H, W, ps, generator=g,
+                               device="cuda")[..., :C] for _ in range(2))
+        f0, f1 = (edge_flow(torch, g, B, H, W, 6.0) for _ in range(2))
+        occ = torch.rand(B, H, W, 1, generator=g, device="cuda")
+        with torch.no_grad():
+            out = warp_cuda.flow_warp_blend(im0, im1, f0, f1, occ)
+            ref = warp_plain.flow_warp_blend(im0, im1, f0, f1, occ)
+            w0, w1 = warp_cuda.flow_warp_pair(im0, im1, f0, f1)
+            pair_equal = torch.equal(out, occ * w0 + (1 - occ) * w1)
+        err = (out - ref).abs().max().item()
+        emit(dict(phase="kernel", kernel="K9 flow_warp_blend, odd shape",
+                  shape=[B, H, W, C], pixel_stride=ps, max_abs_err=err,
+                  bit_equal_to_k2_pair_blend=pair_equal))
+        if not (err <= 1e-6 and pair_equal):
+            raise AssertionError(f"K9 {[B, H, W, C]} stride {ps}: max |d| "
+                                 f"{err} (<= 1e-6), bit-equal to the K2 "
+                                 f"pair + blend: {pair_equal}")
 
     def rand(*shape):
         return torch.rand(*shape, generator=g, device="cuda") * 2 - 1
@@ -938,6 +1051,24 @@ def smooth_frames(torch, n: int, H: int, W: int, seed: int):
     return pairs
 
 
+def smooth_stream(torch, n: int, H: int, W: int, seed: int):
+    """n uint8 frames of one smooth random canvas, each cut at its own
+    offset of up to 6 pixels, made on the CPU from a seed."""
+    import torch.nn.functional as F
+
+    g = torch.Generator().manual_seed(seed)
+    base = torch.rand(1, 3, H // 16 + 2, W // 16 + 2, generator=g)
+    img = F.interpolate(base, size=(H + 32, W + 32), mode="bicubic",
+                        align_corners=False).clamp(0, 1)
+    frames = []
+    for _ in range(n):
+        dx, dy = (int(v) for v in torch.randint(-6, 7, (2,), generator=g))
+        f = img[0, :, 16 + dy:16 + dy + H, 16 + dx:16 + dx + W]
+        frames.append((f * 255).round().to(torch.uint8).permute(1, 2, 0)
+                      .contiguous().numpy())
+    return frames
+
+
 COUNTED = {  # wrapper name -> (module, attribute) of every kernel wrapper
     "atm_block": ("attention_cuda", "atm_block"),
     "window_attention": ("attention_cuda", "window_attention"),
@@ -955,19 +1086,56 @@ COUNTED = {  # wrapper name -> (module, attribute) of every kernel wrapper
 }
 
 
+def wrapper_counters() -> dict:
+    """Every kernel wrapper by its name in COUNTED."""
+    import importlib
+
+    return {k: getattr(importlib.import_module(
+        f"atmvfi_tpu_torch.ops.{mod}"), attr)
+        for k, (mod, attr) in COUNTED.items()}
+
+
+def reset_counts(counters) -> None:
+    for fn in counters.values():
+        fn.launches = 0
+    reset_wgmma(counters)
+
+
+def read_counts(counters) -> dict:
+    launches = {k: fn.launches for k, fn in counters.items()}
+    read_wgmma(counters, launches)
+    return launches
+
+
+def with_wgmma(name: str, per_forward: dict) -> dict:
+    """Launches per forward of a path, with those of the K3-K6 wgmma
+    kernels among them."""
+    return dict(per_forward, conv3x3_wgmma=WGMMA_PER_FORWARD[name],
+                conv3x3_s2_wgmma=per_forward["conv3x3_s2"]
+                - k4_igemm_per_forward(),
+                conv3x3_multi_wgmma=per_forward["conv3x3_multi"],
+                deconv2x_wgmma=per_forward["deconv2x"])
+
+
+def check_launches(name: str, launches: dict, per_forward: dict,
+                   forwards: int) -> None:
+    for k in launches:
+        if launches[k] != per_forward.get(k, 0) * forwards:
+            raise AssertionError(f"{name}: {k}: {launches[k]} launches in "
+                                 f"{forwards} forwards, expected "
+                                 f"{per_forward.get(k, 0)} each")
+
+
 def phase_main_path(torch, name: str, routes: dict, fast: bool,
                     per_forward: dict, frames: int):
     """One run of the serving path; every wrapper's count is set to 0
     just before the timed frames and read just after."""
     import dataclasses
-    import importlib
 
     from atmvfi_tpu_torch.infer import InterpolationPipeline
     from atmvfi_tpu_torch.models import get_config
 
-    counters = {k: getattr(importlib.import_module(
-        f"atmvfi_tpu_torch.ops.{mod}"), attr)
-        for k, (mod, attr) in COUNTED.items()}
+    counters = wrapper_counters()
     cfg = dataclasses.replace(get_config("base"), **routes)
     pipe = InterpolationPipeline(None, cfg, torch.bfloat16,
                                  global_motion=True, device="cuda",
@@ -975,29 +1143,17 @@ def phase_main_path(torch, name: str, routes: dict, fast: bool,
     pairs = smooth_frames(torch, frames + 1, 1080, 1920, seed=3)
     pipe.interpolate(*pairs[0])  # warm-up: cuDNN plans, masks
     torch.cuda.synchronize()
-    for fn in counters.values():
-        fn.launches = 0
-    reset_wgmma(counters)
+    reset_counts(counters)
     t0 = time.perf_counter()
     outs = [pipe.interpolate(f0, f1) for f0, f1 in pairs[1:]]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
-    read_wgmma(counters, launches)
+    launches = read_counts(counters)
     n = len(outs)
     for o in outs:
         if o.shape != (1080, 1920, 3) or o.dtype.name != "uint8":
             raise AssertionError(f"bad output {o.shape} {o.dtype}")
-    per_forward = dict(per_forward, conv3x3_wgmma=WGMMA_PER_FORWARD[name],
-                       conv3x3_s2_wgmma=per_forward["conv3x3_s2"]
-                       - k4_igemm_per_forward(),
-                       conv3x3_multi_wgmma=per_forward["conv3x3_multi"],
-                       deconv2x_wgmma=per_forward["deconv2x"])
-    for k in launches:
-        if launches[k] != per_forward.get(k, 0) * n:
-            raise AssertionError(f"{name}: {k}: {launches[k]} launches in "
-                                 f"{n} forwards, expected "
-                                 f"{per_forward.get(k, 0)} each")
+    check_launches(name, launches, with_wgmma(name, per_forward), n)
     # the middle frame of a shifted pair lies near both inputs
     f0, f1 = pairs[1]
     err = float(abs(outs[0].astype("float32") - f0.astype("float32")).mean())
@@ -1008,6 +1164,138 @@ def phase_main_path(torch, name: str, routes: dict, fast: bool,
               gpu=nvidia_smi_line()))
     del pipe
     torch.cuda.empty_cache()
+    return launches
+
+
+STREAM_BATCHES = (1, 2, 4)
+
+
+def phase_stream(torch):
+    """Batched streaming: the 1080p stream at each batch of
+    STREAM_BATCHES (base, bf16, default routes, 9 frames, factor 2;
+    every wrapper's count set to 0 just before the timed run and read
+    just after), its I_t against batch 1; f32 at 256x448 with padded
+    tails against batch 1 on the card and the CPU port; run-time window
+    sizes; the CLI's --video mode. Returns the batch-4 run's launches."""
+    import contextlib
+    import io
+    import math
+    import tempfile
+
+    from atmvfi_tpu_torch.cli import demo_2x
+    from atmvfi_tpu_torch.infer import InterpolationPipeline
+    from atmvfi_tpu_torch.utils.video import Y4MReader, Y4MWriter
+
+    counters = wrapper_counters()
+    pipe = InterpolationPipeline(None, "base", torch.bfloat16,
+                                 global_motion=True, device="cuda")
+    frames = smooth_stream(torch, 9, 1080, 1920, seed=11)
+    n_out = 2 * (len(frames) - 1) + 1
+    one = None
+    for batch in STREAM_BATCHES:
+        # untimed run first (warm-up at this batch): the I_t kept
+        its = [x for k, x in enumerate(
+            pipe.interpolate_stream_device(frames, 2, batch)) if k % 2]
+        torch.cuda.synchronize()
+        reset_counts(counters)
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        outs = list(pipe.interpolate_stream_batched(frames, 2, batch))
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches = read_counts(counters)
+        forwards = math.ceil((len(frames) - 1) / batch)
+        if len(outs) != n_out or any(o.shape != (1080, 1920, 3)
+                                     or o.dtype.name != "uint8"
+                                     for o in outs):
+            raise AssertionError(f"stream batch {batch}: bad output")
+        check_launches(f"stream batch {batch}", launches,
+                       with_wgmma("default", PER_FORWARD), forwards)
+        if one is None:
+            one = its
+        d = torch.stack([(a - b).abs().mean() for a, b in zip(its, one)])
+        dmax = max((a - b).abs().max().item() for a, b in zip(its, one))
+        emit(dict(phase="stream", model="base", dtype="bf16", batch=batch,
+                  frames_in=len(frames), frames_out=n_out, factor=2,
+                  forwards=forwards, size=[1080, 1920], padded=[1088, 1920],
+                  ms_per_output_frame=dt * 1e3 / n_out,
+                  ms_per_interpolated_frame=dt * 1e3 / (len(frames) - 1),
+                  peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                  launches_per_forward={k: v / forwards
+                                        for k, v in launches.items() if v},
+                  I_t_vs_batch1_mean_abs=d.max().item(),
+                  I_t_vs_batch1_max_abs=dmax, tolerance_mean=1e-3,
+                  gpu=nvidia_smi_line()))
+        if not d.max().item() <= 1e-3:
+            raise AssertionError(f"stream batch {batch}: I_t mean |d| "
+                                 f"{d.max().item()} > 1e-3 against batch 1")
+    del pipe, one, its, outs
+    torch.cuda.empty_cache()
+
+    # f32 (TF32 off): padded tails, against batch 1 and the CPU port
+    card = InterpolationPipeline(None, "base", torch.float32, device="cuda")
+    cpu = InterpolationPipeline(None, "base", torch.float32, device="cpu")
+    frames = smooth_stream(torch, 6, 256, 448, seed=12)
+    one = [x.cpu() for x in card.interpolate_stream_device(frames, 2, 1)]
+    for batch in (2, 3):
+        got = [x.cpu() for x in card.interpolate_stream_device(frames, 2,
+                                                               batch)]
+        ref = list(cpu.interpolate_stream_device(frames, 2, batch))
+        d_card = max((a - b).abs().max().item() for a, b in zip(got, one))
+        d_cpu = max((a - b).abs().max().item() for a, b in zip(got, ref))
+        emit(dict(phase="stream_agreement", model="base", dtype="f32",
+                  size=[256, 448], frames_in=len(frames), batch=batch,
+                  frames_out=len(got), I_t_vs_card_batch1_max_abs=d_card,
+                  I_t_vs_cpu_max_abs=d_cpu, tolerance_card=1e-4,
+                  tolerance_cpu=1e-3))
+        if not (len(got) == len(one) == 11 and d_card <= 1e-4
+                and d_cpu <= 1e-3):
+            raise AssertionError(f"f32 stream batch {batch}: {len(got)} "
+                                 f"frames, max |d| {d_card} against batch 1 "
+                                 f"(<= 1e-4), {d_cpu} against the CPU "
+                                 "(<= 1e-3)")
+
+    # run-time window sizes (6, 8), then back to (8, 12)
+    f0, f1 = frames[:2]
+    first = card.interpolate(f0, f1)
+    for p in (card, cpu):
+        p.set_window_sizes(local=6, global_=8)
+    mid = [list(p.interpolate_stream_device([f0, f1], 2, 1))[1].cpu()
+           for p in (card, cpu)]
+    d_win = (mid[0] - mid[1]).abs().max().item()
+    card.set_window_sizes(local=8, global_=12)
+    back = card.interpolate(f0, f1)
+    same = bool((back == first).all())
+    emit(dict(phase="window_sizes", model="base", dtype="f32",
+              size=[256, 448], windows=[6, 8, 8],
+              I_t_card_vs_cpu_max_abs=d_win, tolerance=1e-3,
+              back_to_8_12_bit_equal=same))
+    if not (d_win <= 1e-3 and same):
+        raise AssertionError(f"window sizes (6, 8): card vs CPU max |d| "
+                             f"{d_win} (<= 1e-3); back to (8, 12) "
+                             f"bit-equal: {same}")
+    del card, cpu
+    torch.cuda.empty_cache()
+
+    # the CLI's --video mode: lite, a 5-frame C420 .y4m, batch 2
+    with tempfile.TemporaryDirectory() as d:
+        src, out = os.path.join(d, "in.y4m"), os.path.join(d, "out.y4m")
+        with Y4MWriter(src, 448, 256, fps=(30, 1), colorspace="C420") as w:
+            for f in smooth_stream(torch, 5, 256, 448, seed=13):
+                w.write(f)
+        said = io.StringIO()
+        with contextlib.redirect_stdout(said):
+            rc = demo_2x.main(["--video", src, "--out", out, "--model_type",
+                               "lite", "--batch", "2"])
+        with Y4MReader(out) as r:
+            head = (r.width, r.height, r.fps, r.colorspace)
+            n = sum(1 for f in r if f.shape == (256, 448, 3))
+    emit(dict(phase="cli_video", model="lite", dtype="bf16", batch=2,
+              rc=rc, header=list(head), frames_out=n,
+              said=said.getvalue().strip().splitlines()))
+    if rc != 0 or head != (448, 256, (60, 1), "C420") or n != 9:
+        raise AssertionError(f"--video: rc {rc}, header {head}, {n} frames "
+                             "(expected 0, (448, 256, (60, 1), 'C420'), 9)")
     return launches
 
 
@@ -1193,14 +1481,10 @@ def phase_spatial_main_path(torch, n: int, frames: int = 2):
     """The row-sharded schedule with n shards on the card through the
     pipeline; every wrapper's count is set to 0 just before the timed
     frames and read just after."""
-    import importlib
-
     from atmvfi_tpu_torch.infer import InterpolationPipeline
     from atmvfi_tpu_torch.parallel import make_mesh
 
-    counters = {k: getattr(importlib.import_module(
-        f"atmvfi_tpu_torch.ops.{mod}"), attr)
-        for k, (mod, attr) in COUNTED.items()}
+    counters = wrapper_counters()
     mesh = make_mesh((1, n), ["cuda:0"] * n)
     pipe = InterpolationPipeline(None, "base", torch.bfloat16,
                                  global_motion=True, mesh=mesh)
@@ -1209,24 +1493,16 @@ def phase_spatial_main_path(torch, n: int, frames: int = 2):
     pairs = smooth_frames(torch, frames + 1, 1080, 1920, seed=7)
     pipe.interpolate(*pairs[0])  # warm-up
     torch.cuda.synchronize()
-    for fn in counters.values():
-        fn.launches = 0
-    reset_wgmma(counters)
+    reset_counts(counters)
     t0 = time.perf_counter()
     outs = [pipe.interpolate(f0, f1) for f0, f1 in pairs[1:]]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {k: fn.launches for k, fn in counters.items()}
-    read_wgmma(counters, launches)
-    per_frame = spatial_per_frame(n)
+    launches = read_counts(counters)
     for o in outs:
         if o.shape != (1080, 1920, 3) or o.dtype.name != "uint8":
             raise AssertionError(f"bad output {o.shape} {o.dtype}")
-    for k in launches:
-        if launches[k] != per_frame.get(k, 0) * frames:
-            raise AssertionError(f"spatial n={n}: {k}: {launches[k]} "
-                                 f"launches in {frames} frames, expected "
-                                 f"{per_frame.get(k, 0)} each")
+    check_launches(f"spatial n={n}", launches, spatial_per_frame(n), frames)
     # I_t of the padded frames against the monolithic forward
     x0, x1 = (torch.from_numpy(f).cuda().float()[None] / 255.0
               for f in pairs[1])
@@ -1708,6 +1984,10 @@ def main() -> int:
         phase_gradients(torch)
         emit(dict(gradients="done", gpu=nvidia_smi_line()))
         return 0
+    if sys.argv[1:] == ["--stream"]:
+        phase_stream(torch)
+        emit(dict(stream="done", gpu=nvidia_smi_line()))
+        return 0
     if sys.argv[1:] == ["--conv-sites"]:
         sites = {r["site"] + f" ({k})": r["ms"]
                  for k, recs in phase_conv_kernels(torch).items()
@@ -1726,6 +2006,7 @@ def main() -> int:
         if k not in PER_FORWARD:
             launches[k] = routes[k]
     launches["k11"] = fast["flow_warp_pair"] + fast["flow_warp"]
+    phase_stream(torch)
     phase_agreement(torch)
     results.update(phase_row_warps(torch))
     spatial = [phase_spatial_main_path(torch, n) for n in (2, 4)]

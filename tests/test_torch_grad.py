@@ -264,6 +264,29 @@ def test_no_autograd_path_under_inference_mode():
     assert torch.equal(x.grad, torch.full((3,), 9.0))
 
 
+def test_grad_forward_after_a_serving_forward():
+    """A forward with grad after the pipeline's inference-mode forward on
+    the same device (windows and size no other test uses, so the masks
+    and relative coordinates are first made by the serving forward)."""
+    import dataclasses
+
+    from atmvfi_tpu_torch.infer import InterpolationPipeline
+    from atmvfi_tpu_torch.models import get_config
+    from test_torch_model import NARROW
+
+    cfg = dataclasses.replace(get_config("lite"), **NARROW).with_windows(
+        5, 7, 5)
+    pipe = InterpolationPipeline(None, cfg, torch.float32, device="cpu")
+    ims = [torch.rand(1, 48, 80, 3, generator=torch.Generator()
+                      .manual_seed(k)) for k in range(2)]
+    pipe.interpolate_device(*ims)
+    out = pipe.net(*ims, global_motion=True)["I_t"]
+    out.mean().backward()
+    grads = [p.grad for p in pipe.net.parameters()]
+    assert all(g is not None for g in grads)
+    assert sum(float(g.abs().sum()) for g in grads) > 0
+
+
 def test_packed_weight_cache_hits_and_misses():
     """The conv pack is made once per weight: a hit returns the same
     pack; an in-place update (`_version`) or a new tensor misses; the
