@@ -13,12 +13,25 @@ every source maps onto one `state_dict` that loads with `strict=True`:
   resolution-dependent buffers (`relative_coord`, `attn_mask`, `HW`).
 * `load_npz(path)`: the .npz that the JAX package's `save_params_npz`
   writes (read with numpy only).
+
+And out of the port, the inverse of each:
+
+* `params_to_jax(state_dict)`: {'/'-joined flax param path: array}, the
+  inverse of `params_from_jax` (every path checked to map back onto its
+  key through `map_flax_key`); buffers the JAX params do not hold
+  (`STRIP_BUFFER_SUFFIXES`) are dropped.
+* `save_npz(path, state_dict, meta)`: the .npz that the JAX package's
+  `save_params_npz` writes of {'params': ...} ('params/'-prefixed
+  '/'-joined flax keys, `__meta__` as JSON bytes).
+* `save_checkpoint(path, state_dict, meta)`: the reference's wrapped .pt
+  ({'model_state_dict': ..., 'optimizer_state_dict': None,
+  'meta_data': ..., 'train_metric': {}, 'val_metric': {}}).
 """
 from __future__ import annotations
 
 import json
 import re
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -177,3 +190,112 @@ def load_npz(path: str) -> Tuple[Dict[str, torch.Tensor], dict]:
         meta = (json.loads(bytes(data[_NPZ_META_KEY]).decode())
                 if _NPZ_META_KEY in data.files else {})
     return params_from_jax(flat), meta
+
+
+# torch module prefixes whose (0, 1) children are a ConvTranspose2d and a
+# PReLU (flax `Deconv2x`: kernel, bias, prelu) rather than a conv
+_DECONV_SEQ = re.compile(r"^(upsample_pyramid\.0\.0|"
+                         r"upsample_pyramid\.[1-9]\d*\.1|up[123]\.0)$")
+_INNER_INV = {torch_name: flax for flax, (torch_name, _) in _INNER.items()}
+
+
+def _flax_seq(flax_prefix: str, torch_prefix: str, leaf: str) -> str:
+    """A conv / deconv + PReLU sequence's leaf ('0.weight', '0.bias',
+    '1.weight') -> its flax path."""
+    if leaf == "1.weight":
+        return f"{flax_prefix}/prelu"
+    name = {"0.weight": "kernel", "0.bias": "bias"}[leaf]
+    if _DECONV_SEQ.match(torch_prefix):
+        return f"{flax_prefix}/{name}"
+    return f"{flax_prefix}/conv/{name}"
+
+
+def flax_path_of(key: str) -> str:
+    """The port's state_dict key -> its '/'-joined flax param path (the
+    inverse of `map_flax_key`'s key)."""
+    m = re.match(r"^feat_extracts\.(\d+)\.(\d+)\.(.+)$", key)
+    if m:
+        k = 2 * int(m.group(1)) + int(m.group(2))
+        return _flax_seq(f"feat_extracts_{k}", key, m.group(3))
+    m = re.match(r"^(cross_scale_feature_fusion|global_feature_fusion)\."
+                 r"(layers\.(\d+)|proj|norm)\.(weight|bias)$", key)
+    if m:
+        mod, part, k, wb = m.group(1), m.group(2), m.group(3), m.group(4)
+        if part == "norm":
+            return f"{mod}/norm/{'scale' if wb == 'weight' else 'bias'}"
+        sub = f"layers_{k}" if k is not None else "proj"
+        return f"{mod}/{sub}/{'kernel' if wb == 'weight' else 'bias'}"
+    m = re.match(r"^(feat_enhance_transformer|local_motion_atmformer|"
+                 r"global_motion_atmformer)\.(\d+)\.(.+)$", key)
+    if m:
+        return f"{m.group(1)}_{m.group(2)}/{_INNER_INV[m.group(3)]}"
+    m = re.match(r"^(local_motion_mlp|global_motion_mlp|up1|up2|up3|"
+                 r"last_feat_extract|down1|down2|down3|refine_head|"
+                 r"upsample_pyramid\.\d+)\.(\d+)\.(.+)$", key)
+    if m:
+        mod, k, rest = m.group(1), int(m.group(2)), m.group(3)
+        flax_mod = (f"upsample{mod.split('.')[1]}" if mod.startswith(
+            "upsample") else mod)
+        prefix = f"{flax_mod}_{k}"
+        plain = ((mod.endswith("motion_mlp") and k == 2)
+                 or (mod == "upsample_pyramid.0" and k == 2)
+                 or (mod.startswith("upsample_pyramid.") and k == 3))
+        if plain:
+            return f"{prefix}/{'kernel' if rest == 'weight' else 'bias'}"
+        if mod.startswith("upsample_pyramid.") and mod != \
+                "upsample_pyramid.0" and k == 0:
+            return f"{prefix}/prelu"
+        return _flax_seq(prefix, f"{mod}.{k}", rest)
+    m = re.match(r"^proj\.(.+)$", key)
+    if m:
+        return _flax_seq("refine_proj", "proj", m.group(1))
+    raise KeyError(f"no flax path for port key {key!r}")
+
+
+def _inverse(kind: str, arr: np.ndarray) -> np.ndarray:
+    if kind == "conv":  # OIHW -> HWIO
+        return np.transpose(arr, (2, 3, 1, 0))
+    if kind == "deconv":  # (I, O, kh, kw) -> (kh, kw, I, O)
+        return np.transpose(arr, (2, 3, 0, 1))
+    if kind == "linear":  # (out, in) -> (in, out)
+        return np.transpose(arr, (1, 0))
+    return arr
+
+
+def params_to_jax(state_dict) -> Dict[str, np.ndarray]:
+    """The port's state_dict -> {'/'-joined flax param path: f32 array},
+    the inverse of `params_from_jax`; cached buffers are dropped."""
+    out = {}
+    for key, value in state_dict.items():
+        if key.endswith(STRIP_BUFFER_SUFFIXES):
+            continue
+        path = flax_path_of(key)
+        back, kind = map_flax_key(path)
+        if back != key:
+            raise KeyError(f"{key!r} -> {path!r} maps back to {back!r}")
+        arr = value.detach().float().cpu().numpy()
+        out[path] = np.ascontiguousarray(_inverse(kind, arr))
+    return out
+
+
+def save_npz(path: str, state_dict, meta: Optional[dict] = None) -> None:
+    """Write the JAX package's params-only .npz, as its trainer and
+    converter call `save_params_npz` on {'params': ...}: keys
+    'params/<flax path>', `__meta__` as JSON bytes."""
+    arrays = {f"params/{k}": v for k, v in params_to_jax(state_dict).items()}
+    if meta is not None:
+        arrays[_NPZ_META_KEY] = np.frombuffer(json.dumps(meta).encode(),
+                                              dtype=np.uint8)
+    np.savez(path, **arrays)
+
+
+def save_checkpoint(path: str, state_dict, meta: Optional[dict] = None
+                    ) -> None:
+    """Write the reference's wrapped .pt (as the JAX package's
+    `save_torch_checkpoint` does): f32 CPU tensors under the port's (the
+    reference model's) names, cached buffers dropped."""
+    sd = {k: v.detach().float().cpu().clone() for k, v in state_dict.items()
+          if not k.endswith(STRIP_BUFFER_SUFFIXES)}
+    torch.save({"model_state_dict": sd, "optimizer_state_dict": None,
+                "meta_data": meta or {}, "train_metric": {},
+                "val_metric": {}}, path)

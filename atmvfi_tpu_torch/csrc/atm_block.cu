@@ -41,7 +41,11 @@
 //      v of the partner window in shared memory: bf16 on the tensor
 //      cores, one warp per 16 query rows (`mma_attn`); f32 with k and v
 //      as f32 (odd row stride), each warp walking query rows with
-//      scalar FMAs (`attn_kernel`).
+//      scalar FMAs (`attn_kernel`). Windows of more than 160 keys (a
+//      window size above 12) run key-tiled forms of both with an online
+//      softmax (`attn_tiled_kernel`, `mma_attn::attn_mma_tiled_kernel`),
+//      one block per (window, head, query block), so that shared memory
+//      does not grow with the window.
 //   3. projection GEMM with bias and the residual in its epilogue (bf16:
 //      lg's GEMM without LayerNorm).
 // A whole global window in bf16 is 144 x 672 x 2 B = 193 KB, more than
@@ -533,7 +537,10 @@ inline cudaError_t ln_rows(const void* x, const float* g, const float* b,
 // Shared by K1 (launch 2 of the block) and the window-attention entry
 // points K7 / K8, which read q, k and v at any strides.
 constexpr int ATT_WARPS = 4;
-constexpr int MAX_KEYS = 5;  // N <= 160 keys: 5 per lane
+constexpr int MAX_KEYS = 5;  // single-pass f32 form: 5 keys per lane
+// Windows of up to this many keys run the single-pass forms (the main
+// path's 8 x 8 and 12 x 12); larger ones the key-tiled forms.
+constexpr int SINGLE_PASS_KEYS = 32 * MAX_KEYS;
 constexpr int MAX_DIMS = 4;  // head_dim <= 128: 4 per lane
 
 // One operand: element (window w, head, token n, channel d) at
@@ -652,6 +659,131 @@ attn_kernel(const __grid_constant__ AttnArgs a) {
       if (d < hd) orow[d] = from_f<T>(o[t]);
     }
     __syncwarp();  // Qw / Pw are rewritten by the next query row
+  }
+}
+
+// ---- f32 attention over windows of any size: key tiles, online softmax
+// attn_kernel holds a whole window (k and v, 2 N hd floats) and 5 scores
+// a lane, so it takes N <= 160. Above that this form runs: one block per
+// (window, head, 16 query rows), each warp keeping 4 query rows' state
+// in registers (running max m, sum l, the lane's output channels and
+// its part of the two motion moments) while k and v pass through shared
+// memory 32 keys at a time, one key a lane. At each tile the state is
+// rescaled by exp(m_old - m_new); out and motion are divided by l at
+// the end. Shared memory (43 KB at hd 128) no longer grows with N; k and
+// v are read once per 16 query rows.
+constexpr int TILE_ROWS = 4;                    // query rows a warp keeps
+constexpr int TILE_QB = ATT_WARPS * TILE_ROWS;  // query rows a block
+constexpr int TILE_KEYS = 32;                   // keys a tile: one a lane
+
+template <typename T>
+__global__ void __launch_bounds__(ATT_WARPS * 32)
+attn_tiled_kernel(const __grid_constant__ AttnArgs a) {
+  extern __shared__ float sm[];
+  const int head = blockIdx.x, w = blockIdx.y, q0 = blockIdx.z * TILE_QB;
+  const int N = a.N, hd = a.hd, hdp = hd | 1;
+  float* Qs = sm;                         // [TILE_QB][hdp]
+  float* Ks = Qs + TILE_QB * hdp;         // [TILE_KEYS][hdp]
+  float* Vs = Ks + TILE_KEYS * hdp;       // [TILE_KEYS][hdp]
+  float* Ps = Vs + TILE_KEYS * hdp;       // [TILE_QB][TILE_KEYS]
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int kw = a.swap ? (w + a.BW / 2) % a.BW : w;
+  const int nq = min(TILE_QB, N - q0);
+  for (int e = threadIdx.x; e < nq * hd; e += blockDim.x) {
+    const int r = e / hd, d = e - r * hd;
+    Qs[r * hdp + d] = to_f(at<T>(a.q, w, head, q0 + r)[d]);
+  }
+  const T* kbase = at<T>(a.k, kw, head, 0);
+  const T* vbase = at<T>(a.v, kw, head, 0);
+  const float* mwin =
+      a.mask ? a.mask + (int64_t)(w % a.mask_windows) * N * N : nullptr;
+  float m[TILE_ROWS], l[TILE_ROWS], mxs[TILE_ROWS], mys[TILE_ROWS];
+  float o[TILE_ROWS][MAX_DIMS];
+#pragma unroll
+  for (int r = 0; r < TILE_ROWS; ++r) {
+    m[r] = -INFINITY;
+    l[r] = mxs[r] = mys[r] = 0.f;
+#pragma unroll
+    for (int t = 0; t < MAX_DIMS; ++t) o[r][t] = 0.f;
+  }
+  const int rw = warp * TILE_ROWS;  // this warp's first row in the block
+  for (int k0 = 0; k0 < N; k0 += TILE_KEYS) {
+    const int nk = min(TILE_KEYS, N - k0);
+    __syncthreads();  // the previous tile is consumed (and q is stored)
+    for (int e = threadIdx.x; e < nk * hd; e += blockDim.x) {
+      const int n = e / hd, d = e - n * hd;
+      Ks[n * hdp + d] = to_f(kbase[(int64_t)(k0 + n) * a.k.sn + d]);
+      Vs[n * hdp + d] = to_f(vbase[(int64_t)(k0 + n) * a.v.sn + d]);
+    }
+    __syncthreads();
+    const int k = k0 + lane;
+#pragma unroll
+    for (int r = 0; r < TILE_ROWS; ++r) {
+      const int q = q0 + rw + r;
+      if (q >= N) break;  // warp-uniform
+      float s = -INFINITY;
+      if (lane < nk) {
+        const float* qr = Qs + (rw + r) * hdp;
+        const float* kr = Ks + lane * hdp;
+        float acc = 0.f;
+        for (int d = 0; d < hd; ++d) acc = fmaf(qr[d], kr[d], acc);
+        acc *= a.scale;
+        if (mwin) acc += mwin[(int64_t)q * N + k];
+        s = acc;
+      }
+      const float mn = fmaxf(m[r], warp_max(s));
+      const float mu = mn == -INFINITY ? 0.f : mn;  // a row all -inf so far
+      const float corr = expf(m[r] - mu);
+      const float p = lane < nk ? expf(s - mu) : 0.f;
+      m[r] = mn;
+      l[r] = l[r] * corr + warp_sum(p);
+      if (a.rel) {
+        const float rx = lane < nk ? a.rel[(int64_t)q * N + k] : 0.f;
+        const float ry =
+            lane < nk ? a.rel[(int64_t)N * N + (int64_t)q * N + k] : 0.f;
+        mxs[r] = fmaf(p, rx, mxs[r] * corr);
+        mys[r] = fmaf(p, ry, mys[r] * corr);
+      }
+#pragma unroll
+      for (int t = 0; t < MAX_DIMS; ++t) o[r][t] *= corr;
+      Ps[(rw + r) * TILE_KEYS + lane] = p;
+    }
+    __syncwarp();
+    for (int kk = 0; kk < nk; ++kk) {
+      const float* vr = Vs + kk * hdp;
+      float vv[MAX_DIMS];
+#pragma unroll
+      for (int t = 0; t < MAX_DIMS; ++t) {
+        const int d = lane + 32 * t;
+        vv[t] = d < hd ? vr[d] : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < TILE_ROWS; ++r) {
+        const float p = Ps[(rw + r) * TILE_KEYS + kk];
+#pragma unroll
+        for (int t = 0; t < MAX_DIMS; ++t) o[r][t] = fmaf(p, vv[t], o[r][t]);
+      }
+    }
+  }
+#pragma unroll
+  for (int r = 0; r < TILE_ROWS; ++r) {
+    const int q = q0 + rw + r;
+    if (q >= N) break;
+    const float inv = 1.f / l[r];
+    T* orow = at<T>(a.out, w, head, q);
+#pragma unroll
+    for (int t = 0; t < MAX_DIMS; ++t) {
+      const int d = lane + 32 * t;
+      if (d < hd) orow[d] = from_f<T>(o[r][t] * inv);
+    }
+    if (a.rel) {
+      const float sx = warp_sum(mxs[r]), sy = warp_sum(mys[r]);
+      if (lane == 0) {
+        T* mo = at<T>(a.motion, w, head, q);
+        mo[0] = from_f<T>(sx * inv);
+        mo[1] = from_f<T>(sy * inv);
+      }
+    }
   }
 }
 
@@ -1018,6 +1150,248 @@ attn_mma_kernel(const __grid_constant__ AttnArgs a) {
              lane);
 }
 
+// ---- bf16 attention over windows of any size: key tiles, online softmax
+// attn_mma_kernel holds a whole window's q, k and v in shared memory and
+// a warp's 16 x N scores in registers (N <= 160). Above that this form
+// runs: one block of 4 warps per (window, head, 64 query rows); q's
+// fragments stay in registers, k and v pass through a two-stage
+// cp.async ring 64 keys at a time, and each warp keeps for its 16 rows
+// a running max m and sum l (per thread over its own keys; the quad
+// sums them at the end), the output accumulators and the motion
+// moments, rescaled by 2^((m_old - m_new) log2 e) at each tile. The
+// probabilities of a tile, exp(s - m_new) in f32, feed the motion
+// moments and, rounded to bf16, the A fragments of P @ V; out and
+// motion are divided by l at the end (so p is rounded before the
+// division, the one difference from the single-pass form). Mask and rel
+// are read at the warp's own (q, k) positions, tile by tile, as there.
+// Shared memory: 5 x 64 rows of (head dim padded to 16) + 8 bf16.
+constexpr int TQ = 64, TKEYS = 64;  // query rows a block, keys a tile
+
+template <int DT>
+__global__ void __launch_bounds__(128)
+attn_mma_tiled_kernel(const __grid_constant__ AttnArgs a) {
+  extern __shared__ __align__(16) unsigned char smem_attn[];
+  const int head = blockIdx.x, w = blockIdx.y, q0 = blockIdx.z * TQ;
+  const int N = a.N, hd = a.hd, dt = (hd + 15) >> 4;
+  const int dp = dt * 16, ld = dp + 8;
+  bf16* Qs = reinterpret_cast<bf16*>(smem_attn);  // then K0, V0, K1, V1
+  auto kbuf = [&](int b) { return Qs + (1 + 2 * b) * TQ * ld; };
+  const int kw = a.swap ? (w + a.BW / 2) % a.BW : w;
+  const int nq = min(TQ, N - q0), tiles = (N + TKEYS - 1) / TKEYS;
+  // a view of rows [row0, ...) of (window, head) of an operand
+  auto rows_of = [](const View& v, int win, int hh, int row0) {
+    View r = v;
+    r.ptr = at<bf16>(v, win, hh, row0);
+    return r;
+  };
+  auto load_tile = [&](int t) {
+    const int n = min(TKEYS, N - t * TKEYS);
+    bf16* kb = kbuf(t & 1);
+    load_rows(kb, ld, rows_of(a.k, kw, head, t * TKEYS), 0, 0, n, 2 * hd,
+              a.width);
+    load_rows(kb + TQ * ld, ld, rows_of(a.v, kw, head, t * TKEYS), 0, 0, n,
+              2 * hd, a.width);
+    if (n < TKEYS) zero_pad(kb, 2, TKEYS, n, hd, dp, ld);  // rows past N
+  };
+  zero_pad(Qs, 5, TQ, TQ, hd, dp, ld);  // the head-dim padding
+  __syncthreads();  // before any row padding overwrites it
+  load_rows(Qs, ld, rows_of(a.q, w, head, q0), 0, 0, nq, 2 * hd, a.width);
+  if (nq < TQ) zero_pad(Qs, 1, TQ, nq, hd, dp, ld);
+  load_tile(0);
+  cp_async_commit();
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3, r0 = warp * 16;
+  bf16* Qw = Qs + r0 * ld;
+  const int qr[2] = {q0 + r0 + g, q0 + r0 + g + 8};
+  const bool pair = N % 2 == 0;  // (q N + k) even: 8-byte mask / rel pairs
+  const float* mrow[2] = {nullptr, nullptr};
+  const float* rrow[2] = {nullptr, nullptr};
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+    if (qr[h] < N) {
+      if (a.mask)
+        mrow[h] = a.mask + ((int64_t)(w % a.mask_windows) * N + qr[h]) * N +
+                  tig * 2;
+      if (a.rel) rrow[h] = a.rel + (int64_t)qr[h] * N + tig * 2;
+    }
+  const float l2e = 1.4426950408889634f;
+  uint32_t qa[DT][4];
+  float o[2 * DT][4];
+#pragma unroll
+  for (int j = 0; j < 2 * DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  float mo[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+
+  for (int t = 0; t < tiles; ++t) {
+    if (t + 1 < tiles) {  // its buffer was last read in tile t - 1
+      load_tile(t + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (t == 0) {
+#pragma unroll
+      for (int kk = 0; kk < DT; ++kk)
+        if (kk < dt)
+          ldsm_x4(qa[kk], Qw + (lane & 15) * ld + kk * 16 + (lane >> 4) * 8);
+    }
+    const bf16* Ks = kbuf(t & 1);
+    const bf16* Vs = Ks + TQ * ld;
+    float s[8][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < DT; ++kk) {
+      if (kk >= dt) break;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t kb[4];
+        ldsm_x4(kb, Ks + (j * 16 + (lane >> 4) * 8 + (lane & 7)) * ld +
+                        kk * 16 + ((lane >> 3) & 1) * 8);
+        mma16816(s[2 * j], qa[kk], kb[0], kb[1]);
+        mma16816(s[2 * j + 1], qa[kk], kb[2], kb[3]);
+      }
+    }
+    // scale + mask, the tile's row max (keys past N: -inf)
+    const int kt0 = t * TKEYS;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int k = kt0 + j * 8 + tig * 2;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v0 = -INFINITY, v1 = -INFINITY;
+        if (k < N) {
+          float2 mk = make_float2(0.0f, 0.0f);
+          if (mrow[h]) mk = ld2(mrow[h] + kt0 + j * 8, k + 1 < N, pair);
+          v0 = __fadd_rn(__fmul_rn(s[j][2 * h], a.scale), mk.x);
+          if (k + 1 < N)
+            v1 = __fadd_rn(__fmul_rn(s[j][2 * h + 1], a.scale), mk.y);
+        }
+        s[j][2 * h] = v0;
+        s[j][2 * h + 1] = v1;
+        mx[h] = fmaxf(mx[h], fmaxf(v0, v1));
+      }
+    }
+    float mb[2], corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float mn = fmaxf(m[h], mx[h]);
+      const float mu = mn == -INFINITY ? 0.0f : mn;  // a row all -inf so far
+      corr[h] = ex2((m[h] - mu) * l2e);
+      m[h] = mn;
+      mb[h] = mu * l2e;
+      l[h] *= corr[h];
+      mo[h][0] *= corr[h];
+      mo[h][1] *= corr[h];
+    }
+#pragma unroll
+    for (int j = 0; j < 2 * DT; ++j) {
+      if (j >= 2 * dt) break;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] *= corr[e >> 1];
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int k = kt0 + j * 8 + tig * 2;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float p0 = ex2(fmaf(s[j][2 * h], l2e, -mb[h]));
+        const float p1 = ex2(fmaf(s[j][2 * h + 1], l2e, -mb[h]));
+        s[j][2 * h] = p0;
+        s[j][2 * h + 1] = p1;
+        l[h] += p0 + p1;
+        if (rrow[h] && k < N) {
+          const int off = kt0 + j * 8;
+          const float2 rx = ld2(rrow[h] + off, k + 1 < N, pair);
+          const float2 ry =
+              ld2(rrow[h] + (int64_t)N * N + off, k + 1 < N, pair);
+          mo[h][0] = fmaf(p1, rx.y, fmaf(p0, rx.x, mo[h][0]));
+          mo[h][1] = fmaf(p1, ry.y, fmaf(p0, ry.x, mo[h][1]));
+        }
+      }
+    }
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    }
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int nt = 0; nt < DT; ++nt) {
+        if (nt >= dt) break;
+        uint32_t vb[4];
+        ldsm_x4_t(vb, Vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                               ld + nt * 16 + (lane >> 4) * 8);
+        mma16816(o[2 * nt], pa[kk], vb[0], vb[1]);
+        mma16816(o[2 * nt + 1], pa[kk], vb[2], vb[3]);
+      }
+    __syncthreads();  // this buffer is refilled at tile t + 2
+  }
+  float inv[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+    inv[h] = 1.0f / l[h];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      mo[h][c] += __shfl_xor_sync(0xffffffffu, mo[h][c], 1);
+      mo[h][c] += __shfl_xor_sync(0xffffffffu, mo[h][c], 2);
+    }
+  }
+  if (a.rel && tig == 0)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      if (qr[h] < N) {
+        bf16* mp = at<bf16>(a.motion, w, head, qr[h]);
+        mp[0] = __float2bfloat16_rn(mo[h][0] * inv[h]);
+        mp[1] = __float2bfloat16_rn(mo[h][1] * inv[h]);
+      }
+  // stage the rounded rows in this warp's q rows, then write them out
+#pragma unroll
+  for (int j = 0; j < 2 * DT; ++j) {
+    if (j >= 2 * dt) break;
+    const int c = j * 8 + tig * 2;
+    *reinterpret_cast<__nv_bfloat162*>(Qw + g * ld + c) =
+        __floats2bfloat162_rn(o[j][0] * inv[0], o[j][1] * inv[0]);
+    *reinterpret_cast<__nv_bfloat162*>(Qw + (g + 8) * ld + c) =
+        __floats2bfloat162_rn(o[j][2] * inv[1], o[j][3] * inv[1]);
+  }
+  __syncwarp();
+  if (r0 < nq)
+    store_rows(Qw, ld, rows_of(a.out, w, head, q0), 0, 0, r0,
+               min(16, nq - r0), 2 * hd, a.width, lane);
+}
+
+template <int DT>
+cudaError_t launch_tiled(const AttnArgs& a, int heads, cudaStream_t st) {
+  const int ld = (a.hd + 15) / 16 * 16 + 8;
+  const int smem = 5 * TQ * ld * 2;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        attn_mma_tiled_kernel<DT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  attn_mma_tiled_kernel<DT>
+      <<<dim3(heads, a.BW, (a.N + TQ - 1) / TQ), 128, smem, st>>>(a);
+  return cudaGetLastError();
+}
+
 template <int KT, int DT>
 cudaError_t launch(const AttnArgs& a, int heads, cudaStream_t st) {
   const int kt = (a.N + 15) / 16, ld = (a.hd + 15) / 16 * 16 + 8;
@@ -1064,16 +1438,27 @@ inline int piece_width(const AttnArgs& a) {
 // so TF32 products would not be the same function).
 template <typename T>
 cudaError_t launch_attn(AttnArgs a, int heads, cudaStream_t st) {
-  if (a.BW < 1 || a.N < 1 || a.N > 32 * MAX_KEYS || heads < 1 || a.hd < 1 ||
+  if (a.BW < 1 || a.N < 1 || heads < 1 || a.hd < 1 ||
       a.hd > 32 * MAX_DIMS || (a.swap && a.BW % 2) ||
       (a.mask && (a.mask_windows < 1 || a.BW % a.mask_windows)) ||
-      (a.rel && !a.motion.ptr))
+      (a.rel && !a.motion.ptr) || (a.N + TILE_QB - 1) / TILE_QB > 65535)
     return cudaErrorInvalidValue;
   if constexpr (sizeof(T) == 2) {
     a.width = mma_attn::piece_width(a);
     if (a.N <= 64) return mma_attn::launch_dt<4>(a, heads, st);
     if (a.N <= 144) return mma_attn::launch_dt<9>(a, heads, st);
-    return mma_attn::launch_dt<10>(a, heads, st);
+    if (a.N <= SINGLE_PASS_KEYS) return mma_attn::launch_dt<10>(a, heads, st);
+    if (a.hd <= 32) return mma_attn::launch_tiled<2>(a, heads, st);
+    if (a.hd <= 48) return mma_attn::launch_tiled<3>(a, heads, st);
+    if (a.hd <= 96) return mma_attn::launch_tiled<6>(a, heads, st);
+    return mma_attn::launch_tiled<8>(a, heads, st);
+  } else if (a.N > SINGLE_PASS_KEYS) {
+    const int hdp = a.hd | 1;
+    const int smem = sizeof(float) * (TILE_QB * hdp + 2 * TILE_KEYS * hdp +
+                                      TILE_QB * TILE_KEYS);
+    attn_tiled_kernel<T><<<dim3(heads, a.BW, (a.N + TILE_QB - 1) / TILE_QB),
+                           ATT_WARPS * 32, smem, st>>>(a);
+    return cudaGetLastError();
   } else {
     const int hdp = a.hd | 1;
     const size_t smem = sizeof(float) * (2 * (size_t)a.N * hdp +
@@ -1107,7 +1492,7 @@ int atm_block(int only, const void* x, const void* wqkv,
               const void* mask, int mask_windows, void* xn, void* qkv,
               void* app, void* y, void* motion, int BW, int N, int C,
               int heads, int swap, float scale, void* stream) {
-  if (BW < 1 || N < 1 || N > 32 * MAX_KEYS || heads < 1 || C % heads ||
+  if (BW < 1 || N < 1 || heads < 1 || C % heads ||
       C % 8 || C / heads > 32 * MAX_DIMS || (swap && BW % 2) ||
       (mask && (mask_windows < 1 || BW % mask_windows)) ||
       (sizeof(T) == 2 &&
@@ -1214,6 +1599,11 @@ extern "C" int atm_block_weight_map(const void* w, int N, int K,
   memcpy(map_out, &map, sizeof(map));
   return 0;
 }
+
+// The attention launch's threshold: windows of up to this many keys run
+// the single-pass forms, larger ones the key-tiled forms (the wrappers
+// count the launches of those).
+extern "C" int attention_single_pass_keys() { return SINGLE_PASS_KEYS; }
 
 #define ATM_BLOCK_ENTRY(NAME, LAUNCH_NAME, T)                                 \
   extern "C" int NAME(const void* x, const void* wqkv, const void* wproj,     \

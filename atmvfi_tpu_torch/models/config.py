@@ -117,10 +117,9 @@ class ATMVFIConfig:
                      enhance: int = None) -> "ATMVFIConfig":
         """The same model with other attention window sizes (the ones
         given; None keeps a field). Parameter shapes do not depend on
-        the windows, so the same weights load into either network. On
-        the card a window holds at most 12 x 12 tokens
-        (`ops.attention_cuda.MAX_N`); a larger one raises in the kernel
-        wrapper."""
+        the windows, so the same weights load into either network. The
+        card takes any window size: windows above 12 x 12 tokens run the
+        attention kernels' key-tiled forms (`ops.attention_cuda`)."""
         kw = {}
         if local is not None:
             kw["local_window"] = local

@@ -91,6 +91,8 @@ def _build(srcs, out_path: str) -> None:
 
 def _declare(lib) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.attention_single_pass_keys.argtypes = []
+    lib.attention_single_pass_keys.restype = I
     for dt in ("f32", "bf16"):
         fn = getattr(lib, f"atm_block_{dt}")
         # x, wqkv, wproj, bproj, weight maps (bf16), ln_g, ln_b, rel,

@@ -16,7 +16,11 @@
 The attention launch (K7, K8 and K1's second launch) runs bf16 on the
 tensor cores (`attn_mma_kernel`: mma.sync, head dims padded to 16 in
 shared memory) and f32 as true f32 on the CUDA cores (`attn_kernel`,
-the parity mode). For CPU tensors each wrapper runs its plain version;
+the parity mode). A window of any size is taken: up to the library's
+`attention_single_pass_keys()` keys (160: window 12) the kernels hold
+the whole window; above it key-tiled forms with an online softmax run
+(`<fn>.tiled_launches` counts each wrapper's launches of them). Head
+dims are at most 128. For CPU tensors each wrapper runs its plain version;
 for CUDA tensors it launches the kernel or raises, differentiably through
 the plain version's VJP when grad is on (`ops._autograd`). `<fn>.calls` counts the calls on any
 device, `<fn>.launches` the calls that launched the kernel.
@@ -47,7 +51,6 @@ from atmvfi_tpu_torch.ops.attention import (
 from atmvfi_tpu_torch.ops.conv_cuda import cached_pack
 
 _DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-MAX_N = 160  # keys per window the kernel holds (5 per lane)
 MAX_HEAD_DIM = 128
 MAX_BF16_C = 1024  # channels of a bf16 block (K1's LayerNorm pass)
 
@@ -120,7 +123,7 @@ def _block_call(x, wq, wkv, wproj, bproj, ln_g, ln_b, scale, rel, mask,
                          f"got {tuple(x.shape)} strides {x.stride()}")
     BW, N, C = x.shape
     h = num_heads
-    if C % h or C % 8 or C // h > MAX_HEAD_DIM or N > MAX_N or (
+    if C % h or C % 8 or C // h > MAX_HEAD_DIM or (
             x.dtype == torch.bfloat16 and C > MAX_BF16_C):
         raise ValueError(f"unsupported block shape N={N} C={C} heads={h}")
     if swap_halves and BW % 2:
@@ -149,6 +152,12 @@ def _block_call(x, wq, wkv, wproj, bproj, ln_g, ln_b, scale, rel, mask,
             float(scale))
     keep = (x, wqkv, wp, bp, maps, g, b, rel_f, mask_f)
     return argv, y, motion, dict(xn=xn, qkv=qkv, app=app, keep=keep)
+
+
+def _tiled(N: int) -> int:
+    """1 when the attention launch runs its key-tiled form at N keys a
+    window (the library's own threshold), else 0."""
+    return int(N > _build.load_library().attention_single_pass_keys())
 
 
 def _launch_block(*args):
@@ -196,6 +205,7 @@ def atm_block(x, wq, wkv, wproj, bproj, ln_g, ln_b, scale: float,
                                  wkv, wproj, bproj, ln_g, ln_b, scale, rel,
                                  mask, num_heads, swap_halves)
     atm_block.launches += 1
+    atm_block.tiled_launches += _tiled(x.shape[1])
     return y, motion
 
 
@@ -206,8 +216,9 @@ def _attention_launch(views, out, motion, rel, mask, BW: int, N: int,
     q = out[0]
     if q.dtype not in _DTYPES:
         raise TypeError(f"window attention takes f32/bf16, got {q.dtype}")
-    if N > MAX_N or hd > MAX_HEAD_DIM:
-        raise ValueError(f"unsupported window N={N} head_dim={hd}")
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"unsupported head_dim={hd} (at most "
+                         f"{MAX_HEAD_DIM})")
     dev = q.device
     mask_f, mask_windows, rel_f = _mask_rel(mask, rel, BW, N, dev)
     if (rel_f is None) != (motion[0] is None):
@@ -266,6 +277,7 @@ def window_attention(q, kv, scale: float, rel: Optional[torch.Tensor],
     out, motion = _autograd.launch(_launch_packed, window_attention_plain, q,
                                    kv, scale, rel, mask, num_heads)
     window_attention.launches += 1
+    window_attention.tiled_launches += _tiled(q.shape[1])
     return out, motion
 
 
@@ -298,9 +310,11 @@ def window_attention_heads(q, k, v, scale: float,
                                    window_attention_heads_plain, q, k, v,
                                    scale, rel, mask)
     window_attention_heads.launches += 1
+    window_attention_heads.tiled_launches += _tiled(q.shape[2])
     return out, motion
 
 
 for _fn in (atm_block, window_attention, window_attention_heads):
     _fn.calls = 0
     _fn.launches = 0
+    _fn.tiled_launches = 0

@@ -2,7 +2,9 @@
 `--video` mode.
 
 The port's own copy of `atmvfi_tpu/utils/video.py` (`rgb_to_ycbcr`,
-`ycbcr_to_rgb`, `Y4MReader`, `Y4MWriter`): uncompressed YUV4MPEG2 is
+`ycbcr_to_rgb`, `Y4MReader`, `Y4MWriter`, and the Xiph staging
+`extract_y4m_frames`, `prepare_xiph`, which write PNG with the port's
+own writer): uncompressed YUV4MPEG2 is
 the one container that needs no codec. Colorspaces: C444 (full chroma)
 and the C420 family (C420, C420jpeg, C420mpeg2, C420paldv; chroma
 siting is ignored: 2x2 box down, nearest up). Colour conversion is
@@ -10,7 +12,8 @@ BT.601 limited range, as ffmpeg does for such clips by default.
 """
 from __future__ import annotations
 
-from typing import Iterator, Optional, Tuple
+import os
+from typing import Iterable, Iterator, Optional, Tuple
 
 import numpy as np
 
@@ -178,3 +181,36 @@ class Y4MWriter:
 
     def __exit__(self, *exc):
         self.close()
+
+
+def extract_y4m_frames(y4m_path: str, out_dir: str,
+                       max_frames: int = 100) -> int:
+    """Dump the first `max_frames` frames as 001.png, 002.png, ... as the
+    Xiph harness's ffmpeg extraction does (`-vframes 100 %03d.png`,
+    1-indexed). Returns the number written."""
+    from atmvfi_tpu_torch.utils.images import write_image
+
+    os.makedirs(out_dir, exist_ok=True)
+    n = 0
+    with Y4MReader(y4m_path) as reader:
+        for i, frame in enumerate(reader, start=1):
+            if i > max_frames:
+                break
+            write_image(os.path.join(out_dir, f"{i:03d}.png"), frame)
+            n += 1
+    return n
+
+
+def prepare_xiph(y4m_dir: str, out_root: str, clips: Iterable[str],
+                 max_frames: int = 100) -> dict:
+    """Stage `out_root/<clip>/NNN.png` from `<y4m_dir>/<clip>.y4m` files
+    (the offline half of the reference's Xiph setup: the Netflix clips
+    themselves are downloaded elsewhere). Returns {clip: frames}."""
+    counts = {}
+    for clip in clips:
+        src = os.path.join(y4m_dir, f"{clip}.y4m")
+        if not os.path.exists(src):
+            continue
+        counts[clip] = extract_y4m_frames(
+            src, os.path.join(out_root, clip), max_frames)
+    return counts

@@ -7,6 +7,9 @@
     python3 chip_smoke.py --route-kernels   # the build and phase 4 alone
     python3 chip_smoke.py --gradients   # the build and phase 10 alone
     python3 chip_smoke.py --stream   # the build and phase 5b alone
+    python3 chip_smoke.py --windows   # the build and phase 11 alone
+    python3 chip_smoke.py --eval   # the build and phase 12 alone
+    python3 chip_smoke.py --windows --eval   # both, one build
 
 Phases, one JSON object per line:
   1. device: the card (nvidia-smi name and power limit), torch and CUDA
@@ -94,19 +97,54 @@ Phases, one JSON object per line:
      |g|; bf16 1e-2, one bf16 step); then the narrow lite network at
      64x96 f32, loss = weighted mean of I_t: every parameter gets a
      gradient within 1e-3 x that tensor's max |g| of the CPU port's.
-Then the {"kernels": [...]} line, the card's name and power limit, and
-the last line {"ok": true, "device": {...}}. With --conv-sites it runs
-only the build and the K3-K6 sites and prints their times as one JSON
-line (to compare two checkouts in one call); with --k1-launches only
-the build and the K1 cases of phase 3; with --route-kernels only the
-build and phase 4; with --gradients only the build and phase 10; with
---stream only the build and phase 5b.
+ 11. windows above 12: K7 at every ATTN_SITES site, K8 at the local
+     one and K1 at all five, at windows 13, 16, 24 and 32 (N = 169-1024:
+     the key-tiled attention forms), f32 and bf16, against their plain
+     versions (f32 max |d| <= 1e-4, bf16 mean <= 5e-3), with CUDA-event
+     times, bounds, the plain version's and SDPA's times (base sites);
+     the single-pass form at the main path's windows (local and
+     enhancement 8, global 12) timed beside them; each launch must take
+     the form its N calls for (the wrappers' tiled counts: 0 at windows
+     8 and 12, 1 above); the pipeline at set_window_sizes(16, 24): base
+     f32 256x448 card against the CPU port (I_t <= 1e-3); base bf16
+     1080p at (8, 12) and (16, 24) in turns, two rounds of 6 timed
+     frames each (ms/frame, mean and median; every wrapper's count set
+     to 0 just before a window's frames and read just after: 6 K1 per
+     frame, 4 of them on the tiled form at (16, 24), none at (8, 12)),
+     bit-equal uint8 at (8, 12) after each stay at (16, 24). Every
+     main-path run of the other phases also requires 0 tiled launches.
+ 12. eval: the benchmark protocols of `evalkit.harness` with seeded base
+     weights, every wrapper's count set to 0 just before each run and
+     read just after (K1, K2, K3 and K6 must launch): Vimeo over
+     tests/fixtures/mini_vimeo (10 triplets, global motion off), f32 on
+     the card against f32 on the CPU port (mean PSNR <= 0.01 dB, SSIM
+     <= 1e-4), and bf16 (PSNR, SSIM, steady fps), and the host's PNG
+     decode time of the fixture's frames; Xiph on a synthetic 11-frame
+     2160x4096 C420 clip staged to PNG by `utils.video.prepare_xiph`
+     (both categories, 5 items each, bf16, global motion, 1088x2048
+     forwards, ms per forward over the 4 after the first, peak memory;
+     TTA on 3 items); SNU-FILM's four splits on three 720x1280 triplets
+     (pad 64);
+     DAVIS 4x on 3 frames of 480x854; the checkpoint CLIs' round trip
+     .npz -> .pt -> .npz (the forward bit-equal before and after) and
+     the benchmark CLI over the fixture on the .pt.
+Then the {"kernels": [...]} line (the key-tiled attention as
+"attention_tiled", its launches from phase 11's 1080p run), the card's
+name and power limit, and the last line {"ok": true, "device": {...}}.
+With --conv-sites it runs only the build and the K3-K6 sites and prints
+their times as one JSON line (to compare two checkouts in one call);
+with --k1-launches only the build and the K1 cases of phase 3; with
+--route-kernels only the build and phase 4; with --gradients only the
+build and phase 10; with --stream only the build and phase 5b; with
+--windows and / or --eval only the build and phases 11 / 12.
 Any failed phase raises and the script exits non-zero; without a CUDA
 device, or without the repo beside it, it exits non-zero before
 printing any result.
 """
 import json
+import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -1095,14 +1133,24 @@ def wrapper_counters() -> dict:
         for k, (mod, attr) in COUNTED.items()}
 
 
+# the wrappers of the attention launch, which count their launches of
+# its key-tiled form (windows above 12) apart: "<name>_tiled" in a run's
+# launches, 0 on every path at the default windows
+TILED_WRAPPERS = ("atm_block", "window_attention", "window_attention_heads")
+
+
 def reset_counts(counters) -> None:
     for fn in counters.values():
         fn.launches = 0
+    for k in TILED_WRAPPERS:
+        counters[k].tiled_launches = 0
     reset_wgmma(counters)
 
 
 def read_counts(counters) -> dict:
     launches = {k: fn.launches for k, fn in counters.items()}
+    for k in TILED_WRAPPERS:
+        launches[k + "_tiled"] = counters[k].tiled_launches
     read_wgmma(counters, launches)
     return launches
 
@@ -1331,6 +1379,459 @@ def phase_agreement(torch):
         if not err <= 1e-3:
             raise AssertionError(f"{model}: card vs CPU I_t max |d| {err} "
                                  "> 1e-3")
+
+
+# windows above 12 (the key-tiled attention forms): the window sizes and
+# the attention sites they run at (ATTN_SITES' token maps, channels and
+# shifts of half the window; enhancement unshifted)
+BIG_WINDOWS = (13, 16, 24, 32)
+WINDOW_FRAMES = 6  # timed 1080p frames a window pair, in each of 2 rounds
+
+
+def attention_operands(torch, g, site: str, ws: int, dtype):
+    """(q, kv, rel, mask, heads, C, BW, N) of one window-attention call at
+    an ATTN_SITES site with window ws: random q and kv, the site's mask
+    and relative coordinates."""
+    from atmvfi_tpu_torch import ops
+
+    _, h, w, _, ss, motion, C = next(a for a in ATTN_SITES if a[0] == site)
+    ss = 0 if site == "enhance" else ws // 2
+    mask = ops.attn_mask_for(h, w, ws, ss, "cuda")
+    rel = ops.relative_coords(ws, "cuda") if motion else None
+    BW, N = 2 * -(-h // ws) * -(-w // ws), ws * ws
+    qkv = torch.randn(BW, N, 3 * C, generator=g, device="cuda").to(dtype)
+    return qkv[..., :C], qkv[..., C:], rel, mask, 8, C, BW, N
+
+
+def attention_work(BW, N, C, heads, s, mask, motion):
+    """(bytes, flops) of one window-attention call: q, k, v read, out
+    written, the mask and rel read and motion written."""
+    nbytes = (4 * BW * N * C * s + (mask.numel() * 4 if mask is not None
+                                    else 0)
+              + (2 * N * N * 4 + BW * N * 2 * heads * s if motion else 0))
+    flops = (4 * BW * heads * N * N * (C // heads)
+             + (4 * BW * heads * N * N if motion else 0))
+    return nbytes, flops
+
+
+def phase_windows(torch):
+    """Windows above 12 on the card: K7 (all sites), K8 (base local) and
+    K1 (all sites) at windows 13, 16, 24 and 32 against their plain
+    versions (f32 max |d| <= 1e-4, bf16 mean <= 5e-3), timed with the
+    plain version, the bound and scaled_dot_product_attention; the
+    single-pass form's bf16 times at the main path's windows beside
+    them; each launch's form checked by the wrappers' tiled counts; the
+    f32 pipeline at set_window_sizes(16, 24) card against the CPU port;
+    the base bf16 1080p path at (8, 12) and (16, 24) in turns
+    (ms/frame, every wrapper's launches set to 0 just before and read
+    just after), bit-equal at (8, 12) after (16, 24). Returns (records,
+    launches of the (16, 24) frames)."""
+    import torch.nn.functional as F
+
+    from atmvfi_tpu_torch.ops import attention as attn_plain
+    from atmvfi_tpu_torch.ops import attention_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    tol = {torch.float32: ("max", 1e-4), torch.bfloat16: ("mean", 5e-3)}
+    recs = []
+    sites = [a[0] for a in ATTN_SITES]
+    for ws in (8, 12) + BIG_WINDOWS:
+        for site in sites:
+            if ws in (8, 12) and (site.startswith("lite") or (
+                    ws == 12) != (site == "global")):
+                continue  # the single-pass form at the main path's sites
+            for dtype in (torch.float32, torch.bfloat16):
+                if ws in (8, 12) and dtype == torch.float32:
+                    continue
+                q, kv, rel, mask, heads, C, BW, N = attention_operands(
+                    torch, g, site, ws, dtype)
+                hd = C // heads
+                scale = hd ** -0.5
+                qh, kh, vh = (t.reshape(BW, N, heads, hd).transpose(1, 2)
+                              .contiguous()
+                              for t in (q, kv[..., :C], kv[..., C:]))
+                kinds = [("K7", attention_cuda.window_attention,
+                          attn_plain.window_attention,
+                          (q, kv, scale, rel, mask, heads))]
+                if site == "local":
+                    kinds.append(("K8", attention_cuda.window_attention_heads,
+                                  attn_plain.window_attention_heads,
+                                  (qh, kh, vh, scale, rel, mask)))
+                timed = not site.startswith("lite")
+                for name, fn, plain, args in kinds:
+                    with torch.no_grad():
+                        before = fn.tiled_launches
+                        (o, m), (orf, mrf) = fn(*args), plain(*args)
+                        tiled = fn.tiled_launches - before
+                        torch.cuda.synchronize()
+                        do = (o.float() - orf.float()).abs()
+                        dm = ((m.float() - mrf.float()).abs()
+                              if rel is not None
+                              else torch.zeros(1, device="cuda"))
+                    stat, lim = tol[dtype]
+                    err = (max(do.max().item(), dm.max().item())
+                           if stat == "max"
+                           else max(do.mean().item(), dm.mean().item()))
+                    dt = "f32" if dtype == torch.float32 else "bf16"
+                    nbytes, flops = attention_work(BW, N, C, heads,
+                                                   q.element_size(), mask,
+                                                   rel is not None)
+                    b_ms, b_by = bound_ms(nbytes, flops, dt)
+                    rec = dict(phase="windows_kernel", kernel=name, case=site,
+                               window=ws, dtype=dt, BW=BW, N=N, C=C,
+                               tiled=bool(tiled),
+                               max_abs_err=do.max().item(),
+                               mean_abs_err=do.mean().item(),
+                               motion_max_abs_err=dm.max().item(),
+                               motion_mean_abs_err=dm.mean().item(),
+                               bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+                               flops=flops)
+                    if timed:
+                        full = (None if mask is None else
+                                mask.repeat(BW // mask.shape[0], 1, 1)[:, None]
+                                .to(dtype))
+                        rec.update(
+                            ms=cuda_ms(lambda: fn(*args), 10),
+                            plain_ms=cuda_ms(lambda: plain(*args), 3, 1),
+                            library_ms=cuda_ms(
+                                lambda: F.scaled_dot_product_attention(
+                                    qh, kh, vh, attn_mask=full, scale=scale),
+                                10),
+                            library="scaled_dot_product_attention, out only")
+                        del full
+                    emit(rec)
+                    recs.append(rec)
+                    if not err <= lim:
+                        raise AssertionError(
+                            f"{name} {site} window {ws} {dt}: {stat} |d| "
+                            f"{err} > {lim}")
+                    if tiled != (ws not in (8, 12)):  # N > 160 alone
+                        raise AssertionError(
+                            f"{name} {site} window {ws} {dt}: {tiled} "
+                            "launches of the key-tiled form")
+                    del o, m, orf, mrf, do, dm
+                del q, kv, qh, kh, vh, kinds
+        # K1 (its attention launch is the same kernel) at this window
+        for site in sites if ws not in (8, 12) else ():
+            for dtype in (torch.float32, torch.bfloat16):
+                recs.append(windows_block_case(torch, g, site, ws, dtype,
+                                               tol[dtype]))
+        torch.cuda.empty_cache()
+    launches = windows_pipelines(torch)
+    return recs, launches
+
+
+def windows_block_case(torch, g, site: str, ws: int, dtype, tol):
+    """K1 at an ATTN_SITES site with window ws (random tokens and
+    weights) against its plain version; bf16 base sites also time the
+    attention launch alone."""
+    from atmvfi_tpu_torch.ops import attention_cuda
+    from atmvfi_tpu_torch.ops.attention import atm_block_reference
+
+    q, _, rel, mask, heads, C, BW, N = attention_operands(torch, g, site, ws,
+                                                          dtype)
+    x = q.contiguous()
+    del q, _
+    def w(*shape):
+        return torch.randn(*shape, generator=g, device="cuda") * C ** -0.5
+
+    args = (x, w(C, C), w(2 * C, C), w(C, C), w(C) * 0.1,
+            1.0 + 0.1 * w(C), 0.1 * w(C), (C // heads) ** -0.5, rel, mask,
+            heads, rel is not None)
+    with torch.no_grad():
+        before = attention_cuda.atm_block.tiled_launches
+        (y, m), (yr, mr) = attention_cuda.atm_block(*args), \
+            atm_block_reference(*args)
+        tiled = attention_cuda.atm_block.tiled_launches - before
+        torch.cuda.synchronize()
+        dy = (y.float() - yr.float()).abs()
+        dm = ((m.float() - mr.float()).abs() if m is not None
+              else torch.zeros(1, device="cuda"))
+    stat, lim = tol
+    err = (max(dy.max().item(), dm.max().item()) if stat == "max"
+           else max(dy.mean().item(), dm.mean().item()))
+    dt = "f32" if dtype == torch.float32 else "bf16"
+    rec = dict(phase="windows_kernel", kernel="K1", case=site, window=ws,
+               dtype=dt, BW=BW, N=N, C=C, max_abs_err=dy.max().item(),
+               mean_abs_err=dy.mean().item(),
+               motion_max_abs_err=dm.max().item(),
+               motion_mean_abs_err=dm.mean().item())
+    if dtype == torch.bfloat16 and not site.startswith("lite"):
+        run, _ = attention_cuda.block_launches(*args)
+        with torch.no_grad():
+            run(0)
+            rec["attention_launch_ms"] = cuda_ms(lambda: run(2), 10)
+    emit(rec)
+    if not err <= lim:
+        raise AssertionError(f"K1 {site} window {ws} {dt}: {stat} |d| {err} "
+                             f"> {lim}")
+    if tiled != 1:
+        raise AssertionError(f"K1 {site} window {ws} {dt}: {tiled} launches "
+                             "of the key-tiled form")
+    return rec
+
+
+def windows_pipelines(torch):
+    """The pipeline at set_window_sizes(16, 24): base f32 256x448 card
+    against the CPU port; base bf16 1080p at (8, 12) and (16, 24) in
+    turns, two rounds of WINDOW_FRAMES timed frames each (ms per frame,
+    every wrapper's launches set to 0 just before a window's frames and
+    read just after), bit-equal at (8, 12) after each stay at (16, 24).
+    Returns the (16, 24) frames' launches."""
+    from atmvfi_tpu_torch.infer import InterpolationPipeline
+
+    f0, f1 = smooth_frames(torch, 1, 256, 448, seed=22)[0]
+    outs = []
+    for dev in ("cuda", "cpu"):
+        p = InterpolationPipeline(None, "base", torch.float32, device=dev)
+        p.set_window_sizes(local=16, global_=24)
+        x0, x1 = (torch.from_numpy(f).to(dev).float()[None] / 255.0
+                  for f in (f0, f1))
+        outs.append(p.interpolate_device(x0, x1).cpu())
+        del p
+    err = (outs[0] - outs[1]).abs().max().item()
+    emit(dict(phase="windows_pipeline", model="base", dtype="f32",
+              size=[256, 448], windows=[16, 24, 8],
+              I_t_card_vs_cpu_max_abs=err, tolerance=1e-3))
+    if not (err <= 1e-3 and bool(torch.isfinite(outs[0]).all())):
+        raise AssertionError(f"windows (16, 24) f32: card vs CPU max |d| "
+                             f"{err} > 1e-3")
+
+    # base bf16 1080p at (8, 12) and (16, 24) in turns, twice: one
+    # untimed forward after each switch, then WINDOW_FRAMES timed frames
+    counters = wrapper_counters()
+    pipe = InterpolationPipeline(None, "base", torch.bfloat16, device="cuda")
+    pairs = smooth_frames(torch, WINDOW_FRAMES + 1, 1080, 1920, seed=23)
+    first = pipe.interpolate(*pairs[0])
+    times = {(8, 12): [], (16, 24): []}
+    launches, same, ok = {}, True, True
+    for _ in range(2):
+        for ws in times:
+            pipe.set_window_sizes(local=ws[0], global_=ws[1])
+            back = pipe.interpolate(*pairs[0])  # warm-up at these windows
+            if ws == (8, 12):
+                same = same and bool((back == first).all())
+            torch.cuda.synchronize()
+            reset_counts(counters)
+            for a, b in pairs[1:]:
+                t0 = time.perf_counter()
+                o = pipe.interpolate(a, b)
+                times[ws].append((time.perf_counter() - t0) * 1e3)
+                ok = ok and o.shape == (1080, 1920, 3)
+            got = read_counts(counters)
+            # 2 local and 2 global blocks per forward run the tiled form
+            check_launches(f"windows {ws} 1080p", got, dict(
+                with_wgmma("default", PER_FORWARD),
+                atm_block_tiled=4 if ws == (16, 24) else 0), WINDOW_FRAMES)
+            launches[ws] = {k: launches.get(ws, {}).get(k, 0) + v
+                            for k, v in got.items()}
+    med = {ws: statistics.median(t) for ws, t in times.items()}
+    emit(dict(phase="windows_main_path", model="base", dtype="bf16",
+              size=[1080, 1920], frames_per_window=len(times[(16, 24)]),
+              ms_per_frame={str(ws): statistics.mean(t)
+                            for ws, t in times.items()},
+              median_ms_per_frame={str(ws): m for ws, m in med.items()},
+              ms_per_frame_by_round={str(ws): [
+                  statistics.mean(t[:WINDOW_FRAMES]),
+                  statistics.mean(t[WINDOW_FRAMES:])]
+                  for ws, t in times.items()},
+              frame_ms={str(ws): t for ws, t in times.items()},
+              median_ms_16_24_minus_8_12=med[(16, 24)] - med[(8, 12)],
+              launches={str(ws): v for ws, v in launches.items()},
+              back_to_8_12_bit_equal=same, gpu=nvidia_smi_line()))
+    if not (ok and same):
+        raise AssertionError(f"windows 1080p: outputs {ok}, back to (8, 12) "
+                             f"bit-equal {same}")
+    del pipe
+    torch.cuda.empty_cache()
+    return launches[(16, 24)]
+
+
+def eval_counted(torch, counters, name: str, run):
+    """run() with every wrapper's count set to 0 just before and read
+    just after; raises unless K1, K2, K3 and K6 launched. Returns
+    (run's result, launches)."""
+    torch.cuda.synchronize()
+    reset_counts(counters)
+    out = run()
+    torch.cuda.synchronize()
+    launches = read_counts(counters)
+    for k in ("atm_block", "flow_warp_pair", "conv3x3", "deconv2x"):
+        if not launches[k]:
+            raise AssertionError(f"eval {name}: no {k} launch ({launches})")
+    return out, {k: v for k, v in launches.items() if v}
+
+
+def phase_eval(torch):
+    """The evaluation protocols on the card (evalkit.harness), seeded base
+    weights: Vimeo over tests/fixtures/mini_vimeo (global motion off) in
+    f32 against the CPU port (mean PSNR <= 0.01 dB, SSIM <= 1e-4 apart)
+    and in bf16, with the host's PNG decode time of the fixture; Xiph on
+    a synthetic 11-frame 2160x4096 clip (staged from a .y4m by
+    utils.video.prepare_xiph; both categories, 5 items each, bf16,
+    global motion, 1088x2048 forwards; ms per forward over the 4 after
+    the first, peak memory; TTA on 3 items); SNU-FILM's four splits on
+    three 720x1280 triplets (pad 64); DAVIS 4x on 3
+    frames; the benchmark CLI on the fixture; the checkpoint CLIs' round
+    trip (.npz -> .pt -> .npz), the forward bit-equal before and after.
+    Every wrapper's count is set to 0 just before each protocol's run
+    and read just after."""
+    import contextlib
+    import io
+    import tempfile
+
+    from atmvfi_tpu_torch import convert
+    from atmvfi_tpu_torch.cli import benchmark, convert_checkpoint
+    from atmvfi_tpu_torch.cli import export_checkpoint
+    from atmvfi_tpu_torch.evalkit import harness
+    from atmvfi_tpu_torch.infer import InterpolationPipeline
+    from atmvfi_tpu_torch.utils import images, video
+
+    counters = wrapper_counters()
+    fixture = os.path.join(HERE, "tests", "fixtures", "mini_vimeo")
+    gpu = nvidia_smi_line()
+
+    # Vimeo: f32 card against f32 CPU, then bf16 on the card
+    res = {}
+    for name, dev, dt in (("f32 card", "cuda", torch.float32),
+                          ("f32 cpu", "cpu", torch.float32),
+                          ("bf16 card", "cuda", torch.bfloat16)):
+        pipe = InterpolationPipeline(None, "base", dt, global_motion=False,
+                                     device=dev)
+        def run():
+            return harness.run_vimeo90k(pipe, fixture, progress=False)
+
+        if dev == "cuda":
+            res[name], launches = eval_counted(torch, counters,
+                                               f"vimeo {name}", run)
+            res[name]["launches"] = launches
+        else:
+            res[name] = run()
+        del pipe
+    d_psnr = abs(res["f32 card"]["psnr"] - res["f32 cpu"]["psnr"])
+    d_ssim = abs(res["f32 card"]["ssim"] - res["f32 cpu"]["ssim"])
+    # the host's PNG decode of the fixture's 30 frames (Paeth rows)
+    pngs = sorted(os.path.join(r, f) for r, _, fs in os.walk(fixture)
+                  for f in fs if f.endswith(".png"))
+    t0 = time.perf_counter()
+    for f in pngs:
+        images.read_image(f)
+    png_ms = (time.perf_counter() - t0) * 1e3 / len(pngs)
+    emit(dict(phase="eval", protocol="vimeo90k", model="base",
+              global_motion=False, size=[256, 448], results=res,
+              f32_psnr_card_vs_cpu=d_psnr, f32_ssim_card_vs_cpu=d_ssim,
+              tolerance_psnr_db=0.01, tolerance_ssim=1e-4,
+              steady_forwards=res["bf16 card"]["n"] - 1,
+              bf16_ms_per_forward=1e3 / res["bf16 card"]["steady_fps"],
+              host_png_read_ms_per_image=png_ms,
+              host_png_read_ms_per_item=3 * png_ms, gpu=gpu))
+    if not (res["f32 card"]["n"] == 10 and d_psnr <= 0.01
+            and d_ssim <= 1e-4 and math.isfinite(res["bf16 card"]["psnr"])):
+        raise AssertionError(f"vimeo f32 card vs CPU: PSNR {d_psnr} dB "
+                             f"(<= 0.01), SSIM {d_ssim} (<= 1e-4)")
+    torch.cuda.empty_cache()
+
+    pipe = InterpolationPipeline(None, "base", torch.bfloat16,
+                                 global_motion=True, pad_divisor=32,
+                                 device="cuda")
+    with tempfile.TemporaryDirectory() as d:
+        # Xiph: an 11-frame 2160x4096 C420 clip -> 001..011.png, 5 items
+        # a category (the first forward of a shape is left out of
+        # steady_fps: 4 timed)
+        with video.Y4MWriter(os.path.join(d, "Tango.y4m"), 4096, 2160,
+                             colorspace="C420") as w:
+            for f in smooth_stream(torch, 11, 2160, 4096, seed=31):
+                w.write(f)
+        staged = video.prepare_xiph(d, os.path.join(d, "xiph"), ["Tango"])
+        torch.cuda.reset_peak_memory_stats()
+        xiph, launches = eval_counted(torch, counters, "xiph", lambda: (
+            harness.run_xiph(pipe, os.path.join(d, "xiph"), clips=("Tango",),
+                             frame_limit=5)))
+        peak = torch.cuda.max_memory_allocated()
+        tta, _ = eval_counted(torch, counters, "xiph tta", lambda: (
+            harness.run_xiph(pipe, os.path.join(d, "xiph"),
+                             categories=("cropped-4k",), clips=("Tango",),
+                             frame_limit=3, tta=True)))
+        emit(dict(phase="eval", protocol="xiph", model="base", dtype="bf16",
+                  global_motion=True, source=[2160, 4096], staged=staged,
+                  forward_size=[1088, 2048], results=xiph,
+                  steady_forwards={k: v["n"] - 1 for k, v in xiph.items()},
+                  ms_per_forward={k: 1e3 / v["steady_fps"]
+                                  for k, v in xiph.items()},
+                  peak_memory_bytes=peak, launches=launches, tta=tta,
+                  tta_ms_per_item=1e3 / tta["cropped-4k"]["steady_fps"],
+                  gpu=gpu))
+        if not (staged == {"Tango": 11}
+                and all(v["n"] == 5 and math.isfinite(v["psnr"])
+                        and v["steady_fps"] > 0 for v in xiph.values())
+                and tta["cropped-4k"]["n"] == 3
+                and tta["cropped-4k"]["steady_fps"] > 0):
+            raise AssertionError(f"xiph: staged {staged}, {xiph}, {tta}")
+
+        # SNU-FILM: three 720x1280 triplets (padded to 768x1280) from 5
+        # frames, the same in each of the four splits
+        os.makedirs(os.path.join(d, "snu", "f"))
+        for i, f in enumerate(smooth_stream(torch, 5, 720, 1280, seed=32)):
+            images.write_image(os.path.join(d, "snu", "f", f"{i}.png"), f)
+        for split in harness.SNU_SPLITS:
+            with open(os.path.join(d, "snu", f"test-{split}.txt"), "w") as fh:
+                fh.writelines(f"f/{i}.png f/{i + 1}.png f/{i + 2}.png\n"
+                              for i in range(3))
+        snu, launches = eval_counted(torch, counters, "snufilm", lambda: (
+            harness.run_snufilm(pipe, os.path.join(d, "snu"))))
+        emit(dict(phase="eval", protocol="snufilm", model="base",
+                  dtype="bf16", global_motion=True, size=[720, 1280],
+                  padded=[768, 1280], results=snu,
+                  steady_forwards={k: v["n"] - 1 for k, v in snu.items()},
+                  ms_per_forward={k: 1e3 / v["steady_fps"]
+                                  for k, v in snu.items()},
+                  launches=launches))
+        if not all(v["n"] == 3 and math.isfinite(v["psnr"])
+                   and v["steady_fps"] > 0 for v in snu.values()):
+            raise AssertionError(f"snufilm: {snu}")
+
+        # DAVIS 4x on 3 frames (480x854, padded to 512x896)
+        frames = smooth_stream(torch, 3, 480, 854, seed=33)
+        out, launches = eval_counted(torch, counters, "davis", lambda: (
+            harness.run_davis_4x(pipe, frames)))
+        ok = (len(out) == 9 and all(o.shape == (480, 854, 3) for o in out)
+              and (out[4] == frames[1]).all())
+        emit(dict(phase="eval", protocol="davis_4x", model="base",
+                  dtype="bf16", size=[480, 854], frames_in=3,
+                  frames_out=len(out), launches=launches))
+        if not ok:
+            raise AssertionError("davis 4x: bad output")
+        del pipe
+        torch.cuda.empty_cache()
+
+        # the checkpoint CLIs' round trip, then the benchmark CLI on it
+        ref = InterpolationPipeline(None, "base", torch.bfloat16,
+                                    device="cuda")
+        f0, f1 = smooth_frames(torch, 1, 256, 448, seed=34)[0]
+        before = ref.interpolate(f0, f1)
+        src, pt, back = (os.path.join(d, f) for f in ("a.npz", "b.pt",
+                                                       "c.npz"))
+        convert.save_npz(src, ref.net.state_dict())
+        said, printed = io.StringIO(), io.StringIO()
+        with contextlib.redirect_stdout(said):
+            rc = (export_checkpoint.main([src, pt])
+                  or convert_checkpoint.main([pt, back]))
+            after = InterpolationPipeline(convert.load_npz(back)[0], "base",
+                                          torch.bfloat16,
+                                          device="cuda").interpolate(f0, f1)
+        with contextlib.redirect_stdout(printed):
+            rc = rc or benchmark.main(["--dataset", "vimeo90k", "--path",
+                                       fixture, "--ckpt", pt, "--profiling"])
+        text = printed.getvalue()
+        bench = json.loads(text[text.rindex("\n{") + 1:])
+        same = bool((before == after).all())
+        emit(dict(phase="eval", protocol="clis", rc=rc,
+                  export_round_trip_bit_equal=same, benchmark=bench))
+        if rc != 0 or not same or bench["n"] != 10 or not (
+                abs(bench["psnr"] - res["bf16 card"]["psnr"]) <= 0.05):
+            raise AssertionError(f"CLIs: rc {rc}, round trip bit-equal "
+                                 f"{same}, benchmark {bench}")
+    return res
 
 
 def spatial_per_frame(n: int) -> dict:
@@ -1818,6 +2319,13 @@ def kernel_line(results, launches):
                                    "head-major (K7's kernels)",
                                    "atmvfi_tpu_torch/csrc/atm_block.cu",
                                    "atmvfi_tpu/ops/attention_pallas.py:119"),
+        "attention_tiled": ("K1 launch 2 / K7 / K8 window attention + "
+                            "motion over windows above 12 (N > 160): "
+                            "key-tiled forms with an online softmax "
+                            "(bf16 attn_mma_tiled_kernel on mma.sync, f32 "
+                            "attn_tiled_kernel)",
+                            "atmvfi_tpu_torch/csrc/atm_block.cu",
+                            "atmvfi_tpu/ops/attention_pallas.py:233"),
         "flow_warp_blend": ("K9 fused dual warp + occlusion blend",
                             "atmvfi_tpu_torch/csrc/warp.cu",
                             "atmvfi_tpu/ops/warp_pallas.py:437"),
@@ -1862,6 +2370,9 @@ def kernel_line(results, launches):
             used = [(r, 2) for r in base]
         elif k == "window_attention_heads":  # on no main path
             used = [(r, 1) for r in base]
+        elif k == "attention_tiled":  # the windows phase's (16, 24) path
+            used = [(r, 2) for r in base if r["kernel"] == "K7" and (
+                r["case"], r["window"]) in (("local", 16), ("global", 24))]
         else:
             used = [(r, r["per_forward"]) for r in recs if r["per_forward"]]
         n = sum(w for _, w in used)
@@ -1875,7 +2386,8 @@ def kernel_line(results, launches):
             ms=avg("ms"), plain_ms=avg("plain_ms"), bound_ms=avg("bound_ms"),
             bound_by=max(used, key=lambda rw: rw[0]["bound_ms"])[0]["bound_by"],
             library_ms=lib)
-        if k in ("window_attention", "window_attention_heads"):
+        if k in ("window_attention", "window_attention_heads",
+                 "attention_tiled"):
             entry["bf16_max_abs_err"] = max(r["max_abs_err"] for r in recs
                                             if r["dtype"] == "bf16")
         if k == "conv3x3_pair":
@@ -1883,8 +2395,12 @@ def kernel_line(results, launches):
                                             for r in recs)
             entry["ms_over_two_k3"] = entry["ms"] / avg("two_k3_ms")
         if k in ("window_attention", "window_attention_heads",
-                 "conv3x3_pair"):
+                 "attention_tiled", "conv3x3_pair"):
             entry["ms_over_library"] = entry["ms"] / lib
+        if k == "attention_tiled":
+            entry["windows"] = sorted({r["window"] for r in recs})
+            entry["f32_max_abs_err"] = max(r["max_abs_err"] for r in recs
+                                           if r["dtype"] == "f32")
         if k.endswith("_wgmma"):
             entry["igemm_ms"] = avg("igemm_ms")
             entry["ms_over_igemm"] = entry["ms"] / entry["igemm_ms"]
@@ -1984,6 +2500,11 @@ def main() -> int:
         phase_gradients(torch)
         emit(dict(gradients="done", gpu=nvidia_smi_line()))
         return 0
+    if sys.argv[1:] and set(sys.argv[1:]) <= {"--windows", "--eval"}:
+        for flag in sys.argv[1:]:  # one build for both
+            (phase_windows if flag == "--windows" else phase_eval)(torch)
+            emit({flag[2:]: "done", "gpu": nvidia_smi_line()})
+        return 0
     if sys.argv[1:] == ["--stream"]:
         phase_stream(torch)
         emit(dict(stream="done", gpu=nvidia_smi_line()))
@@ -2014,6 +2535,10 @@ def main() -> int:
         launches[k] = sum(run[k] for run in spatial)
     phase_spatial_agreement(torch)
     phase_gradients(torch)
+    windows, win_launches = phase_windows(torch)
+    results["attention_tiled"] = [r for r in windows if r.get("tiled")]
+    launches["attention_tiled"] = win_launches["atm_block_tiled"]
+    phase_eval(torch)
     emit(kernel_line(results, launches))
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
