@@ -21,7 +21,6 @@ everywhere. Images are read with the port's own PNG reader.
 """
 from __future__ import annotations
 
-import functools
 import math
 import os
 import time
@@ -34,6 +33,7 @@ from atmvfi_tpu_torch.evalkit import metrics
 from atmvfi_tpu_torch.infer.padder import InputPadder
 from atmvfi_tpu_torch.utils.images import read_image
 from atmvfi_tpu_torch.utils.meters import AverageMeter
+from atmvfi_tpu_torch.utils.resample import pillow_resize
 
 
 def _flip(t: torch.Tensor) -> torch.Tensor:
@@ -207,65 +207,6 @@ def run_snufilm(pipeline, path: str, img_data_path: str = "",
 XIPH_CLIPS = ("BoxingPractice", "Crosswalk", "DrivingPOV", "FoodMarket",
               "FoodMarket2", "RitualDance", "SquareAndTimelapse", "Tango")
 
-_PRECISION_BITS = 32 - 8 - 2  # Pillow's fixed point for 8-bit resampling
-
-
-@functools.lru_cache(maxsize=16)
-def _box_weights(in_size: int, out_size: int):
-    """(first input index, fixed-point weights [out, ksize]) of Pillow's
-    BOX resampling along one axis (Resample.c: precompute_coeffs, then
-    normalize_coeffs_8bpc): output pixel xx takes the input pixels whose
-    centres lie in its box, (xx + 0.5) * scale +- scale / 2 for a
-    downscale, each with the same weight."""
-    scale = in_size / out_size
-    filterscale = max(scale, 1.0)
-    support = 0.5 * filterscale
-    ksize = int(math.ceil(support)) * 2 + 1
-    first = np.zeros(out_size, np.int32)
-    kk = np.zeros((out_size, ksize), np.int32)
-    for xx in range(out_size):
-        center = (xx + 0.5) * scale
-        xmin = max(int(center - support + 0.5), 0)
-        xmax = min(int(center + support + 0.5), in_size) - xmin
-        x = np.arange(xmax, dtype=np.float64)
-        arg = (x + xmin - center + 0.5) * (1.0 / filterscale)
-        w = ((arg > -0.5) & (arg <= 0.5)).astype(np.float64)
-        if w.sum() != 0:
-            w = w / w.sum()
-        first[xx] = xmin
-        kk[xx, :xmax] = np.where(w < 0, -0.5 + w * (1 << _PRECISION_BITS),
-                                 0.5 + w * (1 << _PRECISION_BITS)
-                                 ).astype(np.int32)
-    return first, kk
-
-
-def _resample_axis(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
-    """One 8-bit pass of Pillow's resampling along `axis` of uint8 img,
-    in its 32-bit integer arithmetic (weights sum to 2^22, so no sum
-    leaves int32)."""
-    first, kk = _box_weights(img.shape[axis], out_size)
-    src = np.moveaxis(img, axis, 0).astype(np.int32)
-    acc = np.full((out_size,) + src.shape[1:], 1 << (_PRECISION_BITS - 1),
-                  np.int32)
-    extra = (1,) * (src.ndim - 1)
-    for j in range(kk.shape[1]):
-        idx = np.minimum(first + j, src.shape[0] - 1)
-        acc += src[idx] * kk[:, j].reshape((-1,) + extra)
-    out = np.clip(acc >> _PRECISION_BITS, 0, 255).astype(np.uint8)
-    return np.ascontiguousarray(np.moveaxis(out, 0, axis))
-
-
-def _area_resize(img: np.ndarray, out_w: int, out_h: int) -> np.ndarray:
-    """Pillow's `Image.resize((out_w, out_h), Image.BOX)` of a uint8
-    [H, W, C] image, exactly: the horizontal pass, rounded to uint8, then
-    the vertical one; an axis whose size does not change is not
-    resampled."""
-    if img.shape[1] != out_w:
-        img = _resample_axis(img, 1, out_w)
-    if img.shape[0] != out_h:
-        img = _resample_axis(img, 0, out_h)
-    return img
-
 
 def run_xiph(pipeline, root: str, categories=("resized-2k", "cropped-4k"),
              tta: bool = False, clips=XIPH_CLIPS,
@@ -296,7 +237,7 @@ def run_xiph(pipeline, root: str, categories=("resized-2k", "cropped-4k"),
                 except FileNotFoundError:
                     continue
                 if category == "resized-2k":
-                    img0, img1, imgt = (_area_resize(im, *resize_to)
+                    img0, img1, imgt = (pillow_resize(im, *resize_to, "box")
                                         for im in (img0, img1, imgt))
                 else:  # cropped-4k: center crop
                     mh, mw = crop_margin

@@ -46,8 +46,9 @@ rounded up to 8 (on the CPU too), so the next kernel reads it with
 working type as [9, Cout, Kp] (Kp = channels rounded up to 8, zeros
 beyond) and keeps the pack (and K3's weight tensor map) per weight
 (`cached_pack`: keyed on the weight's identity, data_ptr, _version,
-dtype and shape, so an in-place update repacks). Bias and slope are
-read as f32.
+dtype and shape, so an in-place update repacks; a weight that requires
+grad is packed anew at every call outside inference mode). Bias and
+slope are read as f32.
 """
 from __future__ import annotations
 
@@ -200,7 +201,17 @@ def cached_pack(weight: torch.Tensor, kind: str, dtype, make, deps=()):
     changes (another data_ptr, an in-place update bumping `_version`,
     another shape or dtype) or one of the tensors `deps` the pack is
     also made from does (data_ptr, `_version`). An entry dies with its
-    weight."""
+    weight.
+
+    A weight that requires grad may be written by an optimizer that
+    bumps no version (torch's fused AdamW), so outside inference mode
+    its pack is made anew at every call: a training forward (or an
+    evaluation under no_grad between updates) never reads a stale pack.
+    Frozen weights, and every weight under inference mode (serving),
+    keep theirs."""
+    if (not torch.is_inference_mode_enabled()
+            and any(t.requires_grad for t in (weight, *deps))):
+        return make()
     try:
         fp = tuple((t.data_ptr(), t._version, tuple(t.shape), t.dtype)
                    for t in (weight, *deps))
@@ -447,8 +458,10 @@ def _launch_multi_wgmma(sources, weight, bias, slope, fold=None):
         _build.check(rc, "conv3x3_multi wgmma weight map")
         return w, tmap, bn.value
 
-    _, tmap, bn = cached_pack(weight, f"3x3 multi wgmma {layout} {fold}",
-                              torch.bfloat16, make)
+    # the pack stays referenced until the launch: a weight that requires
+    # grad gets a pack of its own per call, which no cache entry holds
+    pack, tmap, bn = cached_pack(weight, f"3x3 multi wgmma {layout} {fold}",
+                                 torch.bfloat16, make)
     b = _vec(bias, cout, "bias", dev)
     a = _vec(slope, cout, "slope", dev)
     out = empty_nhwc(B, H, W, cout, torch.bfloat16, dev)

@@ -87,8 +87,10 @@ def _launch_wgmma(x, weight, bias, slope, tile: int = 0):
         _build.check(rc, "deconv2x wgmma weight map")
         return w, tmap, bnw.value
 
-    _, tmap, bnw = cached_pack(weight, f"deconv2x wgmma {tile}",
-                               torch.bfloat16, make)
+    # the pack stays referenced until the launch: a weight that requires
+    # grad gets a pack of its own per call, which no cache entry holds
+    pack, tmap, bnw = cached_pack(weight, f"deconv2x wgmma {tile}",
+                                  torch.bfloat16, make)
     b = _vec(bias, cout, "bias", x.device)
     a = _vec(slope, cout, "slope", x.device)
     out = empty_nhwc(B, 2 * H, 2 * W, cout, torch.bfloat16, x.device)

@@ -6,11 +6,13 @@ The port's copy of `atmvfi_tpu/utils/images.py` (`read_image`,
 its own codec on `zlib` and numpy, so it runs where Pillow is not
 installed:
 
-* reading: 8-bit greyscale, RGB and RGBA, non-interlaced, every row
-  filter (None, Sub, Up, Average, Paeth); any other PNG (palette, grey +
-  alpha, 16-bit, interlaced) raises `ValueError`. Images come back as
-  RGB, as Pillow's `convert("RGB")` gives them: grey repeated over the
-  three channels, alpha dropped.
+* reading: 8-bit greyscale, grey + alpha, RGB, RGBA and palette,
+  non-interlaced, every row filter (None, Sub, Up, Average, Paeth).
+  Images come back as RGB, as Pillow's `convert("RGB")` gives them: grey
+  repeated over the three channels, palette indices looked up in PLTE,
+  alpha dropped. Any other PNG (16-bit, 1/2/4-bit, interlaced) raises
+  `UnsupportedPNG` in the codec; `read_image` then reads it with Pillow
+  where Pillow is installed, and raises without it.
 * writing: 8-bit RGB with filter 0 on every row.
 
 Other formats (.jpg, ...) go through Pillow where it is installed.
@@ -24,7 +26,11 @@ import zlib
 import numpy as np
 
 _PNG_SIG = b"\x89PNG\r\n\x1a\n"
-_CHANNELS = {0: 1, 2: 3, 6: 4}  # colour type -> samples a pixel
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}  # colour type -> samples a pixel
+
+
+class UnsupportedPNG(ValueError):
+    """A well-formed PNG of a kind the codec does not decode."""
 
 
 def _chunks(data: bytes, path: str):
@@ -97,30 +103,39 @@ def _unfilter(raw: np.ndarray, h: int, w: int, bpp: int) -> np.ndarray:
 
 
 def read_png(path: str) -> np.ndarray:
-    """An 8-bit non-interlaced PNG -> uint8 [H, W, samples] (1 grey, 3
-    RGB, 4 RGBA)."""
+    """An 8-bit non-interlaced PNG -> uint8 [H, W, samples] (1 grey, 2
+    grey + alpha, 3 RGB or palette looked up, 4 RGBA)."""
     with open(path, "rb") as fh:
         data = fh.read()
-    header, idat = None, []
+    header, idat, plte = None, [], None
     for kind, body in _chunks(data, path):
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            plte = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif kind == b"IDAT":
             idat.append(body)
     if header is None:
         raise ValueError(f"PNG without IHDR: {path}")
     w, h, depth, ctype, _, _, interlace = header
     if depth != 8 or ctype not in _CHANNELS or interlace:
-        raise ValueError(
+        raise UnsupportedPNG(
             f"{path}: unsupported PNG (bit depth {depth}, colour type "
-            f"{ctype}, interlace {interlace}); this reader takes 8-bit "
-            "non-interlaced grey, RGB and RGBA")
+            f"{ctype}, interlace {interlace}); this codec takes 8-bit "
+            "non-interlaced grey, grey + alpha, RGB, RGBA and palette")
     bpp = _CHANNELS[ctype]
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     if raw.size != h * (1 + w * bpp):
         raise ValueError(f"{path}: image data of {raw.size} bytes for "
                          f"{w}x{h}x{bpp}")
-    return _unfilter(raw.reshape(h, 1 + w * bpp), h, w, bpp)
+    img = _unfilter(raw.reshape(h, 1 + w * bpp), h, w, bpp)
+    if ctype == 3:
+        if plte is None:
+            raise ValueError(f"{path}: palette PNG without PLTE")
+        table = np.zeros((256, 3), np.uint8)  # Pillow: black past the end
+        table[:len(plte)] = plte[:256]
+        img = table[img[..., 0]]
+    return img
 
 
 def _chunk(kind: bytes, body: bytes) -> bytes:
@@ -150,11 +165,22 @@ def _is_png(path: str) -> bool:
 
 
 def read_image(path: str) -> np.ndarray:
-    """Read an image file -> RGB uint8 [H, W, 3]. PNG needs no Pillow."""
+    """Read an image file -> RGB uint8 [H, W, 3]. The PNGs the codec
+    decodes need no Pillow; other PNGs and other formats need it."""
     if _is_png(path):
-        img = read_png(path)
-        if img.shape[2] == 1:  # grey
-            return np.repeat(img, 3, axis=2)
+        try:
+            img = read_png(path)
+        except UnsupportedPNG as err:
+            try:
+                from PIL import Image
+            except ImportError as no_pillow:
+                raise UnsupportedPNG(f"{err}; such PNGs are read through "
+                                     "Pillow, which does not import"
+                                     ) from no_pillow
+            with Image.open(path) as im:
+                return np.asarray(im.convert("RGB"), dtype=np.uint8)
+        if img.shape[2] <= 2:  # grey, grey + alpha
+            return np.repeat(img[..., :1], 3, axis=2)
         return np.ascontiguousarray(img[..., :3])
     try:
         from PIL import Image

@@ -10,6 +10,7 @@
     python3 chip_smoke.py --windows   # the build and phase 11 alone
     python3 chip_smoke.py --eval   # the build and phase 12 alone
     python3 chip_smoke.py --windows --eval   # both, one build
+    python3 chip_smoke.py --train   # the build and phase 13 alone
 
 Phases, one JSON object per line:
   1. device: the card (nvidia-smi name and power limit), torch and CUDA
@@ -128,6 +129,33 @@ Phases, one JSON object per line:
      DAVIS 4x on 3 frames of 480x854; the checkpoint CLIs' round trip
      .npz -> .pt -> .npz (the forward bit-equal before and after) and
      the benchmark CLI over the fixture on the .pt.
+ 13. train: a Vimeo tree over the fixture's 10 triplets (its train list
+     30 times over) in a temporary directory. `python -m
+     atmvfi_tpu_torch.cli.train`'s main (base, phase 1, batch 24, 256x256
+     crops, f32, 3 steps, validation, the epoch's .npz: finite, its peak
+     memory printed, also when batch 24 does not fit). `Trainer` on base
+     phases 1 (batch 24) and 3 (batch 16) in bf16 and f32 and phase 4
+     (the VGG terms on seeded random weights) in bf16, each frame decoded
+     once, and phase 3 bf16 decoding every frame in the loader's 8
+     threads beside the steps: 2 warm-up steps, then 5 (phase 4: 3; with
+     the decode: 6) timed ones, the host clock around each step
+     ended by torch.cuda.synchronize(), the loader's wait apart, the
+     CUDA-event span and the main thread's CPU time of each step, peak
+     memory, every step's losses (finite); the first warm-up step of
+     each run holds every kernel call against its plain version on the
+     same card tensors (TRAIN_KERNEL_BANDS); one more phase 3 bf16 step
+     of each of its two runs under torch.profiler (device busy time by
+     kernel family); every wrapper's count set to 0 just before each
+     timed step and read just after: K1-K6 and both K2 forms launch
+     through the autograd path (phases 3 and 4: exactly PER_FORWARD). Agreement, f32, TF32 off: narrow lite 64x96, batch 2,
+     phase 3 with every criterion switch on, loss terms on the card
+     against the CPU port (<= 1e-4 relative) and every parameter
+     gradient (<= 1e-3 x its max |g|); every kernel wrapper's bf16
+     gradients against its plain version's (<= 1e-2). Weight packs: the
+     bf16 K3 (wgmma) and K1 forwards of a lite layer after a step
+     (foreach and fused AdamW) equal their plain versions on the new
+     weights, and after `restore_train_state` the pre-step outputs, bit
+     for bit.
 Then the {"kernels": [...]} line (the key-tiled attention as
 "attention_tiled", its launches from phase 11's 1080p run), the card's
 name and power limit, and the last line {"ok": true, "device": {...}}.
@@ -136,7 +164,8 @@ their times as one JSON line (to compare two checkouts in one call);
 with --k1-launches only the build and the K1 cases of phase 3; with
 --route-kernels only the build and phase 4; with --gradients only the
 build and phase 10; with --stream only the build and phase 5b; with
---windows and / or --eval only the build and phases 11 / 12.
+--windows and / or --eval only the build and phases 11 / 12; with
+--train only the build and phase 13.
 Any failed phase raises and the script exits non-zero; without a CUDA
 device, or without the repo beside it, it exits non-zero before
 printing any result.
@@ -510,7 +539,9 @@ def phase_kernels(torch, k1_only: bool = False):
     results = {"atm_block": [], "flow_warp_pair": [], "flow_warp": []}
     tol = {torch.float32: ("max", 1e-4), torch.bfloat16: ("mean", 5e-3)}
     for model in ("base", "lite"):
-        net = Network(get_config(model)).cuda()
+        # frozen, as served: K1 keeps its weight packs across the timed
+        # calls (a weight that requires grad is packed at every call)
+        net = Network(get_config(model)).cuda().requires_grad_(False)
         cases = (("local", "global", "enhance") if model == "base"
                  else ("lite local", "lite global"))
         for which in cases:
@@ -2186,34 +2217,8 @@ def phase_gradients(torch):
     from atmvfi_tpu_torch.ops import conv_cuda
 
     torch.backends.cudnn.deterministic = True  # repeatable conv VJPs
-    for name, fn, plain, args, lim in grad_cases(torch):
-        leaves = [a for a in args if isinstance(a, torch.Tensor)
-                  and a.requires_grad]
-        leaves += [s for a in args if isinstance(a, list) for s in a
-                   if s.requires_grad]
-
-        def grads(f):
-            outs = f(*args)
-            outs = [o for o in (outs if isinstance(outs, tuple) else (outs,))
-                    if o is not None]
-            g = torch.Generator(device="cuda").manual_seed(11)
-            cts = [torch.randn(o.shape, generator=g, device="cuda")
-                   .to(o.dtype) for o in outs]
-            return outs, torch.autograd.grad(outs, leaves, cts)
-
-        outs, got = grads(fn)
-        _, want = grads(plain)
-        if any(o.grad_fn is None for o in outs):
-            raise AssertionError(f"gradients: {name}: an output has no "
-                                 "grad_fn")
-        err = max((a.float() - b.float()).abs().max().item()
-                  / max(b.float().abs().max().item(), 1e-30)
-                  for a, b in zip(got, want))
-        emit(dict(phase="gradients", wrapper=name, inputs=len(leaves),
-                  max_rel_abs_err=err, tolerance=lim))
-        if not err <= lim:
-            raise AssertionError(f"gradients: {name}: max relative |d| "
-                                 f"{err} > {lim}")
+    for case in grad_cases(torch):
+        check_grad_case(torch, *case, "gradients")
     torch.backends.cudnn.deterministic = False
 
     H, W = 64, 96
@@ -2254,6 +2259,647 @@ def phase_gradients(torch):
     if not worst <= 1e-3:
         raise AssertionError(f"gradients: {worst_name}: max |d| {worst} > "
                              "1e-3 x max |g|")
+
+
+# ---- phase 13: training ----------------------------------------------
+# the kernel wrappers a training forward must launch (K1-K6 and K2's
+# two forms), through the autograd path
+TRAIN_WRAPPERS = ("atm_block", "flow_warp_pair", "flow_warp", "conv3x3",
+                  "conv3x3_s2", "conv3x3_multi", "deconv2x")
+TRAIN_TIMED = 5  # timed steps after 2 warm-up steps
+
+
+def vimeo_train_tree(root: str, repeat: int) -> str:
+    """A Vimeo triplet tree over tests/fixtures/mini_vimeo: its 10
+    sequences as the test list and `repeat` times over as the train
+    list (the sequences are a symlink)."""
+    fixture = os.path.join(HERE, "tests", "fixtures", "mini_vimeo")
+    os.symlink(os.path.join(fixture, "sequences"),
+               os.path.join(root, "sequences"))
+    with open(os.path.join(fixture, "tri_testlist.txt")) as f:
+        seqs = [ln for ln in f.read().splitlines() if len(ln) > 1]
+    for name, lines in (("tri_testlist.txt", seqs),
+                        ("tri_trainlist.txt", seqs * repeat)):
+        with open(os.path.join(root, name), "w") as f:
+            f.write("\n".join(lines) + "\n")
+    return root
+
+
+def random_vgg_npz(path: str, seed: int = 0) -> str:
+    """VGG16 feature weights (HWIO kernels, biases; the layout of the JAX
+    package's `export_vgg16_npz`) drawn He-scaled from a seed: real ones
+    are not in the repository."""
+    import numpy as np
+
+    from atmvfi_tpu_torch.losses.vgg import VGG16_PLAN
+
+    rng = np.random.default_rng(seed)
+    arrays, cin = {}, 3
+    for p in VGG16_PLAN:
+        if p == "M":
+            continue
+        name, cout = p
+        arrays[f"{name}.kernel"] = (np.sqrt(2.0 / (9 * cin)) * rng
+                                    .standard_normal((3, 3, cin, cout))
+                                    ).astype(np.float32)
+        arrays[f"{name}.bias"] = (0.01 * rng.standard_normal(cout)
+                                  ).astype(np.float32)
+        cin = cout
+    np.savez(path, **arrays)
+    return path
+
+
+# bands of a kernel's outputs against its plain version's on the same
+# inputs, by the call's working type (bf16 where any operand or output
+# is bf16),
+# as phase 3 holds them: f32 max |d|, bf16 mean |d|, each over max(1,
+# the plain output's max |.| (f32) or mean |.| (bf16)), since training
+# activations are not of unit scale
+TRAIN_KERNEL_BANDS = {"float32": ("max", 1e-4), "bfloat16": ("mean", 5e-3)}
+
+
+class _CountFunctions:
+    """Counts the kernel calls that went through the autograd Function
+    (`ops._autograd`) while active. With check=True each call also runs
+    the kernel's plain version on the same card tensors (no grad) and
+    keeps the worst error of each plain version against
+    TRAIN_KERNEL_BANDS; `verify` prints them and raises on a miss."""
+
+    def __init__(self, torch=None, check: bool = False):
+        from atmvfi_tpu_torch.ops import _autograd
+
+        self.cls, self.n, self.torch = _autograd._KernelFunction, 0, torch
+        self.check, self.unflatten, self.worst = check, _autograd._unflatten, {}
+
+    def _compare(self, plain, spec, flat, out):
+        torch = self.torch
+        with torch.no_grad():
+            want = plain(*self.unflatten(spec, [t.detach() for t in flat]))
+        pairs = [(o, w) for o, w in zip(
+            out if isinstance(out, tuple) else (out,),
+            want if isinstance(want, tuple) else (want,))
+            if isinstance(o, torch.Tensor)]
+        dt = ("bfloat16" if any(t.dtype == torch.bfloat16 for t in
+                                [*flat, *(o for o, _ in pairs)])
+              else "float32")
+        stat, band = TRAIN_KERNEL_BANDS[dt]
+        for o, w in pairs:
+            d = (o.detach().float() - w.float()).abs()
+            scale = max(1.0, (w.float().abs().max() if stat == "max"
+                              else w.float().abs().mean()).item())
+            err = (d.max() if stat == "max" else d.mean()).item() / scale
+            rec = self.worst.setdefault(
+                f"{plain.__name__} {dt}",
+                dict(calls=0, stat=stat, band=band, err=-1.0))
+            rec["calls"] += 1
+            if not math.isnan(rec["err"]) and not err <= rec["err"]:
+                rec.update(err=err, scale=scale, shape=list(o.shape))
+
+    def __enter__(self):
+        orig = self.cls.apply
+
+        def apply(kernel, plain, spec, *flat):
+            self.n += 1
+            out = orig(kernel, plain, spec, *flat)
+            if self.check:
+                self._compare(plain, spec, flat, out)
+            return out
+
+        self.cls.apply = apply
+        return self
+
+    def __exit__(self, *exc):
+        del self.cls.apply  # the inherited classmethod again
+
+    def verify(self, name: str) -> None:
+        emit(dict(phase="train_kernels", run=name, kernel_calls=self.n,
+                  plain_versions=self.worst))
+        bad = {k: r for k, r in self.worst.items()
+               if not r["err"] <= r["band"]}
+        if bad or not self.worst:
+            raise AssertionError(f"train {name}: kernels against their "
+                                 f"plain versions: {bad or 'no call'}")
+
+
+def port_kernel_names() -> set:
+    """The __global__ functions of atmvfi_tpu_torch/csrc."""
+    import glob
+    import re
+
+    names = set()
+    for path in glob.glob(os.path.join(HERE, "atmvfi_tpu_torch", "csrc",
+                                       "*.cu*")):
+        with open(path) as f:
+            names.update(re.findall(
+                r"__global__\s+(?:void\s+)?(?:__launch_bounds__\([^)]*\)"
+                r"\s*)?(?:void\s+)?(\w+)\s*\(", f.read()))
+    return names
+
+
+def profile_step(torch, trainer, batch, median_ms: float) -> dict:
+    """One training step under torch.profiler (CPU and CUDA activities),
+    its batch already loaded: the union of the device's activity
+    intervals (kernels, copies, sets; not the `span` ranges mirrored on
+    the device's timeline: the time the card was busy), that union over
+    the port's kernels (csrc), cuDNN / cuBLAS (the plain VJPs' convs and
+    products), torch's own kernels (elementwise, reductions, AdamW) and
+    the rest (copies, sets), the busy share of the profiled step and of
+    the timed steps' median, and the 12 device names with the most time.
+    Where the trace holds no device activity, device_busy_ms is None
+    ("not measured")."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ours = re.compile(r"\b(" + "|".join(sorted(port_kernel_names())) + r")\b")
+    library = re.compile(r"xmma|cudnn|cublas|gemm|convolve|wgrad|dgrad|"
+                         r"cutlass|nchwToNhwc|nhwcToNchw")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_step(*batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = prof.events()
+    host_names = {e.name for e in events if e.device_type != DeviceType.CUDA}
+    spans, by_name = {}, {}
+    for e in events:
+        if (e.device_type != DeviceType.CUDA or e.name in host_names
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        kind = ("port" if ours.search(e.name) else
+                "library" if library.search(e.name) else
+                "torch" if "at::native" in e.name else "other")
+        a, b = e.time_range.start, e.time_range.end
+        spans.setdefault(kind, []).append((a, b))
+        by_name[e.name] = by_name.get(e.name, 0.0) + (b - a) / 1e3
+    if not spans:
+        return dict(device_busy_ms=None, profiled_step_ms=wall)
+
+    def union_ms(iv):
+        total, end = 0.0, None
+        for a, b in sorted(iv):
+            if end is None or a > end:
+                total, end = total + (b - a), b
+            elif b > end:
+                total, end = total + (b - end), b
+        return total / 1e3
+
+    busy = union_ms([iv for v in spans.values() for iv in v])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    return dict(profiled_step_ms=wall, device_busy_ms=busy,
+                device_ms={k: union_ms(v) for k, v in spans.items()},
+                device_events={k: len(v) for k, v in spans.items()},
+                busy_share_of_profiled_step=busy / wall,
+                busy_share_of_median_step=busy / median_ms,
+                top_device_ms=[[n[:120], t] for n, t in top])
+
+
+def train_run(torch, name: str, trainer, loader, steps: int,
+              warmup: int = 2, per_forward: dict = None,
+              profile: bool = False):
+    """`warmup` untimed steps, then `steps` timed ones: the host clock
+    around each step, ended by torch.cuda.synchronize(), and the loader's
+    wait for its batch apart. The first warm-up step holds every kernel
+    call's output against its plain version on the same inputs
+    (`_CountFunctions`, check=True). Every wrapper's count is set to 0
+    just before each timed step and read just after: each of
+    TRAIN_WRAPPERS must launch, through the autograd path (and
+    per_forward's counts, exactly, where given). Losses must be finite.
+    With profile=True one more step runs under torch.profiler
+    (`profile_step`)."""
+    counters = wrapper_counters()
+    it = iter(loader)
+    for i in range(warmup):
+        with _CountFunctions(torch, check=i == 0) as fc:
+            trainer.train_step(*next(it))
+        if i == 0:
+            fc.verify(name)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, waits, losses, launches, functions = [], [], [], None, 0
+    span, main_cpu = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        batch = next(it)
+        t1 = time.perf_counter()
+        reset_counts(counters)
+        c0 = time.thread_time()
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in "01")
+        with _CountFunctions() as fc:
+            e0.record()
+            metrics = trainer.train_step(*batch)
+            e1.record()
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        main_cpu.append((time.thread_time() - c0) * 1e3)
+        span.append(e0.elapsed_time(e1))
+        got = read_counts(counters)
+        waits.append((t1 - t0) * 1e3)
+        ms.append((t2 - t1) * 1e3)
+        losses.append({k: float(v) for k, v in metrics.items()})
+        for k in TRAIN_WRAPPERS:
+            if got[k] == 0:
+                raise AssertionError(f"train {name}: {k} did not launch")
+        if per_forward is not None:
+            check_launches(f"train {name}", {k: got[k] for k in
+                                             per_forward}, per_forward, 1)
+        if fc.n < sum(got[k] for k in TRAIN_WRAPPERS):
+            raise AssertionError(f"train {name}: {fc.n} autograd kernel "
+                                 "calls, fewer than the launches")
+        launches, functions = got, fc.n
+        bad = [k for k, v in losses[-1].items() if not math.isfinite(v)]
+        if bad:
+            raise AssertionError(f"train {name}: non-finite {bad}")
+    trace = (profile_step(torch, trainer, next(it), statistics.median(ms))
+             if profile else None)
+    it.close()  # the loader's threads stop taking batches
+    rec = dict(phase="train", run=name, steps=steps, warmup_steps=warmup,
+               ms_per_step_median=statistics.median(ms),
+               ms_per_step_min=min(ms), ms_per_step_max=max(ms),
+               ms_per_step=ms, loader_wait_ms=waits,
+               device_span_ms=span, main_thread_cpu_ms=main_cpu,
+               load_average=os.getloadavg()[0],
+               loader_wait_ms_median=statistics.median(waits),
+               peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+               tf32=bool(torch.backends.cudnn.allow_tf32),
+               launches_per_step=launches, autograd_kernel_calls=functions,
+               losses=losses, profile=trace, gpu=nvidia_smi_line())
+    emit(rec)
+    return rec
+
+
+def train_loader(path: str, batch: int, seed: int, decode: bool):
+    """Vimeo training batches, 8 loader threads. decode=False reads each
+    of the fixture's 10 triplets once and keeps it (the crops and flips
+    still run per item), so the steps are timed without the PNG decode
+    beside them; decode=True decodes every frame of every item, as
+    training over a real dataset does."""
+    from atmvfi_tpu_torch.data import DataLoader, VimeoDataset
+
+    import threading
+
+    ds = VimeoDataset("train", path, seed=seed)
+    if not decode:
+        read, kept, lock = ds._read, {}, threading.Lock()
+
+        def read_once(index):
+            seq = ds.meta_data[index]
+            with lock:
+                if seq not in kept:
+                    kept[seq] = read(index)
+                return kept[seq]
+
+        ds._read = read_once
+    return DataLoader(ds, batch, shuffle=True, num_workers=8, seed=seed)
+
+
+def phase_train_steps(torch, tree: str, vgg: str):
+    """Base, phases 1 (batch 24, global motion off) and 3 (batch 16,
+    global motion on) in bf16 and f32, and phase 4's criterion (the VGG
+    terms on random weights) in bf16, through `Trainer` on 256x256 crops
+    of the fixture's frames, the frames decoded once; then phase 3 in
+    bf16 with every frame decoded in the loader's threads while the
+    steps run (their decode holds the GIL beside the step)."""
+    from atmvfi_tpu_torch.losses import VGGPerceptualLoss
+    from atmvfi_tpu_torch.train import Trainer, TrainerConfig, get_phase
+
+    runs = []
+    for ph, dt, decode, steps in (("1", torch.bfloat16, False, TRAIN_TIMED),
+                                  ("1", torch.float32, False, TRAIN_TIMED),
+                                  ("3", torch.bfloat16, False, TRAIN_TIMED),
+                                  ("3", torch.float32, False, TRAIN_TIMED),
+                                  ("4", torch.bfloat16, False, 3),
+                                  ("3", torch.bfloat16, True, 6)):
+        phase = get_phase(ph)
+        loader = train_loader(tree, phase.batch_size, int(ph), decode)
+        vgg_loss = VGGPerceptualLoss(vgg) if ph == "4" else None
+        trainer = Trainer(TrainerConfig(
+            phase, variant="base", dtype=dt, steps_per_epoch=len(loader),
+            device="cuda", seed=5), perceptual_loss=vgg_loss)
+        name = (f"phase{ph} {str(dt).split('.')[-1]} batch "
+                f"{phase.batch_size}{', PNG decode' if decode else ''}")
+        rec = train_run(torch, name, trainer, loader, steps,
+                        per_forward=None if ph == "1" else PER_FORWARD,
+                        profile=ph == "3" and dt == torch.bfloat16)
+        if ph == "4" and "perceptual_loss" not in rec["losses"][0]:
+            raise AssertionError("train phase 4: no VGG terms")
+        runs.append(rec)
+        del trainer, loader
+        torch.cuda.empty_cache()
+    return runs
+
+
+def phase_train_cli(torch, tree: str):
+    """`python -m atmvfi_tpu_torch.cli.train` (its `main`, in this
+    process, so its launches and memory are read): base phase 1 at batch
+    24 on 256x256 crops, f32, 3 steps (2 loader threads), validation on
+    the fixture's test list, the epoch's .npz."""
+    from atmvfi_tpu_torch.cli import train as train_cli
+    from atmvfi_tpu_torch.convert import load_npz
+
+    ckpt = os.path.join(tree, "ckpt")
+    counters = wrapper_counters()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(counters)
+    t0 = time.perf_counter()
+    try:
+        rc = train_cli.main([
+            "--phase", "1", "--variant", "base", "--vimeo_path", tree,
+            "--batch_size", "24", "--num_epoch", "1", "--debug",
+            "--debug_iter", "3", "--num_workers", "2",
+            "--model_checkpoints", ckpt, "--device", "cuda"])
+    except torch.cuda.OutOfMemoryError:
+        emit(dict(phase="train_cli", error="out of memory at batch 24",
+                  peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9))
+        raise
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = read_counts(counters)
+    names = os.listdir(ckpt)
+    if rc != 0 or len(names) != 1:
+        raise AssertionError(f"train CLI: rc {rc}, checkpoints {names}")
+    sd, meta = load_npz(os.path.join(ckpt, names[0]))
+    bad = [k for k, v in meta["train_metric"].items()
+           if not math.isfinite(v)]
+    if bad or not all(torch.isfinite(v).all() for v in sd.values()):
+        raise AssertionError(f"train CLI: non-finite {bad or 'weights'}")
+    for k in TRAIN_WRAPPERS:
+        if launches[k] == 0:
+            raise AssertionError(f"train CLI: {k} did not launch")
+    emit(dict(phase="train_cli", model="base", train_phase="phase1_local",
+              batch=24, crop=256, dtype="f32", steps=3, seconds=dt,
+              checkpoint=names[0], meta=meta, launches=launches,
+              peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9,
+              gpu=nvidia_smi_line()))
+
+
+def train_grad_cases_bf16(torch):
+    """(name, wrapper, plain version, arguments) of every kernel wrapper
+    in bf16 at a small shape: the working type of the towers in a bf16
+    training step (the K3-K6 and K1 wgmma routes are phase 10's)."""
+    from atmvfi_tpu_torch import ops
+    from atmvfi_tpu_torch.ops import attention as attn_plain
+    from atmvfi_tpu_torch.ops import attention_cuda, conv_cuda, deconv_cuda
+    from atmvfi_tpu_torch.ops import conv as conv_plain
+    from atmvfi_tpu_torch.ops import warp as warp_plain
+    from atmvfi_tpu_torch.ops import warp_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    bf16 = torch.bfloat16
+
+    def t(*shape, scale=1.0, dtype=bf16, grad=True):
+        x = torch.randn(*shape, generator=g, device="cuda") * scale
+        return x.to(dtype).requires_grad_(grad)
+
+    def w(*shape, scale=0.1):
+        return t(*shape, scale=scale, dtype=torch.float32)
+
+    def flow(B, H, W):
+        return edge_flow(torch, g, B, H, W, 3.0).requires_grad_(True)
+
+    def conv1(x, wt, b, a, stride=1):
+        return conv_plain.conv3x3([x], wt, b, a, stride)
+
+    rel = ops.relative_coords(8, "cuda")
+    mask = ops.attn_mask_for(16, 16, 8, 4, "cuda")
+    C, h = 64, 8
+    return [
+        ("flow_warp", warp_cuda.flow_warp, warp_plain.flow_warp,
+         (t(1, 16, 24, 40), flow(1, 16, 24))),
+        ("flow_warp_rows", warp_cuda.flow_warp_rows,
+         warp_plain.flow_warp_rows, (t(2, 20, 24, 16), flow(2, 8, 24), 5)),
+        ("conv3x3 (igemm, bf16)", conv_cuda.conv3x3, conv1,
+         (t(1, 12, 20, 24), w(16, 24, 3, 3), w(16), w(16, scale=0.3))),
+        ("conv3x3_s2 (igemm, bf16)", conv_cuda.conv3x3_s2,
+         lambda x, wt, b, a: conv1(x, wt, b, a, 2),
+         (t(1, 12, 20, 24), w(16, 24, 3, 3), w(16), w(16, scale=0.3))),
+        ("conv3x3_multi (igemm, bf16)", conv_cuda.conv3x3_multi,
+         lambda s, wt, b, a: conv_plain.conv3x3(s, wt, b, a, 1),
+         ([t(1, 12, 20, 16), t(1, 12, 20, 3, dtype=torch.float32,
+                                grad=False)],
+          w(8, 19, 3, 3), w(8), w(8, scale=0.3))),
+        ("conv3x3_pair", conv_cuda.conv3x3_pair, conv_plain.conv3x3_pair,
+         (t(1, 12, 20, 16), w(16, 16, 3, 3), w(16), w(16, scale=0.3),
+          w(8, 16, 3, 3), w(8), None)),
+        ("deconv2x (igemm, bf16)", deconv_cuda.deconv2x, conv_plain.deconv2x,
+         (t(1, 8, 12, 16), w(16, 8, 2, 2), w(8), w(8, scale=0.3))),
+        ("window_attention", attention_cuda.window_attention,
+         attn_plain.window_attention,
+         (t(4, 64, C), t(4, 64, 2 * C), (C // h) ** -0.5, rel, mask, h)),
+        ("window_attention_heads", attention_cuda.window_attention_heads,
+         attn_plain.window_attention_heads,
+         (t(4, h, 64, 8), t(4, h, 64, 8), t(4, h, 64, 8), 8 ** -0.5, rel,
+          None)),
+    ]
+
+
+def check_grad_case(torch, name, fn, plain, args, lim, phase):
+    """fn's gradients (kernel forward, plain VJP) against autograd
+    through `plain`, with the same cotangents: max |d| <= lim x the
+    gradient's max |g|."""
+    leaves = [a for a in args if isinstance(a, torch.Tensor)
+              and a.requires_grad]
+    leaves += [s for a in args if isinstance(a, list) for s in a
+               if s.requires_grad]
+
+    def grads(f):
+        outs = f(*args)
+        outs = [o for o in (outs if isinstance(outs, tuple) else (outs,))
+                if o is not None]
+        g = torch.Generator(device="cuda").manual_seed(11)
+        cts = [torch.randn(o.shape, generator=g, device="cuda").to(o.dtype)
+               for o in outs]
+        return outs, torch.autograd.grad(outs, leaves, cts)
+
+    outs, got = grads(fn)
+    _, want = grads(plain)
+    if any(o.grad_fn is None for o in outs):
+        raise AssertionError(f"{phase}: {name}: an output has no grad_fn")
+    err = max((a.float() - b.float()).abs().max().item()
+              / max(b.float().abs().max().item(), 1e-30)
+              for a, b in zip(got, want))
+    emit(dict(phase=phase, wrapper=name, inputs=len(leaves),
+              dtype=str(outs[0].dtype).split(".")[-1],
+              max_rel_abs_err=err, tolerance=lim))
+    if not err <= lim:
+        raise AssertionError(f"{phase}: {name}: max relative |d| {err} > "
+                             f"{lim}")
+
+
+def phase_train_agreement(torch, vgg: str):
+    """f32, TF32 off: the narrow lite network at 64x96, batch 2, phase 3
+    with every switch of the criterion on (the VGG terms on random
+    weights): loss terms (<= 1e-4 relative) and every parameter gradient
+    (<= 1e-3 x its max |g|) on the card against the CPU port; then every
+    kernel wrapper's bf16 gradients against its plain version's (<= 1e-2
+    x max |g|, as phase 10's bf16 routes)."""
+    import dataclasses
+
+    from atmvfi_tpu_torch.losses import VGGPerceptualLoss
+    from atmvfi_tpu_torch.models import Network, get_config
+    from atmvfi_tpu_torch.train import PHASE3, make_criterion
+
+    phase = dataclasses.replace(
+        PHASE3, use_l1_loss=True, use_bidirect_warp_loss=True,
+        use_sobel_loss=True, use_perceptual_loss=True, use_style_loss=True)
+    H, W = 64, 96
+    pairs = smooth_frames(torch, 2, H, W, seed=21)
+    im0, im1 = (torch.stack([torch.from_numpy(p[i]) for p in pairs]).float()
+                / 255.0 for i in (0, 1))
+    gt = (0.5 * (im0 + im1)).clamp(0, 1)
+    net = Network(dataclasses.replace(get_config("lite"), **NARROW),
+                  torch.Generator().manual_seed(21))
+    vgg_loss = VGGPerceptualLoss(vgg)
+    crit = make_criterion(phase, vgg_loss)
+
+    def step(dev):
+        n = net.to(dev)
+        vgg_loss.to(dev)
+        n.zero_grad(set_to_none=True)
+        out = n(im0.to(dev), im1.to(dev), global_motion=True)
+        loss, ld = crit(out, gt.to(dev))
+        loss.backward()
+        return ({"loss": loss.item(),
+                 **{k: v.item() for k, v in ld.items()}},
+                {k: p.grad.detach().cpu() for k, p in n.named_parameters()
+                 if p.grad is not None})
+
+    cpu_l, cpu_g = step("cpu")
+    counters = wrapper_counters()
+    reset_counts(counters)
+    gpu_l, gpu_g = step("cuda")
+    launches = read_counts(counters)
+    loss_err = max(abs(gpu_l[k] - cpu_l[k]) / abs(cpu_l[k]) for k in cpu_l)
+    worst, worst_name = 0.0, None
+    for k, v in cpu_g.items():
+        e = ((gpu_g[k] - v).abs().max() / v.abs().max().clamp_min(1e-30)
+             ).item()
+        if e > worst:
+            worst, worst_name = e, k
+    emit(dict(phase="train_agreement", model="lite narrow", size=[H, W],
+              batch=2, dtype="f32", tf32=False, terms=sorted(cpu_l),
+              loss_card=gpu_l, loss_cpu=cpu_l, max_rel_loss_err=loss_err,
+              parameters=len(cpu_g), max_rel_grad_err=worst,
+              worst_parameter=worst_name, launches=launches,
+              tolerance=dict(loss=1e-4, grad=1e-3)))
+    if set(gpu_g) != set(cpu_g) or len(cpu_l) != 8:
+        raise AssertionError("train agreement: terms or gradients differ "
+                             f"({sorted(cpu_l)})")
+    if not (loss_err <= 1e-4 and worst <= 1e-3):
+        raise AssertionError(f"train agreement: loss {loss_err} > 1e-4 or "
+                             f"{worst_name} {worst} > 1e-3")
+    for k in TRAIN_WRAPPERS:
+        if launches[k] == 0:
+            raise AssertionError(f"train agreement: {k} did not launch")
+    torch.backends.cudnn.deterministic = True  # repeatable conv VJPs
+    for case in train_grad_cases_bf16(torch):
+        check_grad_case(torch, *case, 1e-2, "train_grad_bf16")
+    torch.backends.cudnn.deterministic = False
+
+
+def phase_train_packs(torch, tree: str):
+    """No stale weight pack: the K3 (wgmma, bf16) and K1 (bf16) forwards
+    of a lite layer after a training step (foreach and fused AdamW, a
+    learning rate that moves the bf16 weights) equal their plain versions
+    on the updated weights (K3 mean |d| <= 1e-3, K1 <= 5e-3) and differ
+    from the pre-step output; after `restore_train_state` they equal the
+    pre-step outputs bit for bit."""
+    import dataclasses
+
+    from atmvfi_tpu_torch import ops
+    from atmvfi_tpu_torch.ops import attention as attn_plain
+    from atmvfi_tpu_torch.ops import attention_cuda
+    from atmvfi_tpu_torch.ops import conv as conv_plain
+    from atmvfi_tpu_torch.train import PHASE3, Trainer, TrainerConfig
+    from atmvfi_tpu_torch.train.checkpoints import (
+        restore_train_state,
+        save_train_state,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(31)
+    x3 = torch.randn(2, 32, 48, 32, generator=g, device="cuda").to(
+        torch.bfloat16)
+    x1 = torch.randn(4, 64, 224, generator=g, device="cuda").to(
+        torch.bfloat16)
+    rel = ops.relative_coords(8, "cuda")
+    phase = dataclasses.replace(PHASE3, init_lr=1e-2, warmup_steps=1)
+    pairs = smooth_frames(torch, 2, 64, 96, seed=32)
+    im0, im1 = (torch.stack([torch.from_numpy(p[i]) for p in pairs]).float()
+                / 255.0 for i in (0, 1))
+    batch = (im0, (0.5 * (im0 + im1)), im1)
+    for impl in ("foreach", "fused"):
+        tr = Trainer(TrainerConfig(phase, variant="lite",
+                                   dtype=torch.bfloat16, device="cuda",
+                                   steps_per_epoch=4, seed=33))
+        tr.optimizer = torch.optim.AdamW(
+            tr.trainable, weight_decay=phase.weight_decay, **{impl: True})
+        conv = tr.net.feat_extracts[1][1]  # 32 -> 32: K3 on wgmma
+        blk = tr.net.local_motion_atmformer[0]  # C 224, 8 heads: K1
+
+        def k3():
+            with torch.no_grad():
+                return conv(x3), conv_plain.conv3x3(
+                    [x3], conv[0].weight, conv[0].bias, conv[1].weight, 1)
+
+        def k1():
+            a, n = blk.attn, blk.norm1
+            args = (x1, a.q.weight, a.kv.weight, a.proj.weight, a.proj.bias,
+                    n.weight, n.bias, 28 ** -0.5, rel, None, 8, True)
+            with torch.no_grad():
+                return (attention_cuda.atm_block(*args)[0],
+                        attn_plain.atm_block_reference(*args)[0])
+
+        ckpt = os.path.join(tree, f"state_{impl}")
+        save_train_state(ckpt, tr.state_dict(), 0)
+        before = {"K3": k3(), "K1": k1()}
+        before_w = conv[0].weight.detach().clone()
+        tr.train_step(*batch)
+        if torch.equal(before_w, conv[0].weight):
+            raise AssertionError(f"packs {impl}: the step moved no weight")
+        after = {"K3": k3(), "K1": k1()}
+        restore_train_state(ckpt, 0, tr)
+        restored = {"K3": k3(), "K1": k1()}
+        rec = dict(phase="train_packs", adamw=impl)
+        for k, band in (("K3", 1e-3), ("K1", 5e-3)):
+            (y0, p0), (y1, p1), (y2, p2) = before[k], after[k], restored[k]
+            err = (y1.float() - p1.float()).abs().mean().item()
+            moved = (p1.float() - p0.float()).abs().mean().item()
+            stale = (y1.float() - y0.float()).abs().mean().item()
+            rec[k] = dict(mean_abs_err_after_step=err, band=band,
+                          plain_moved_by=moved, kernel_moved_by=stale,
+                          restored_bit_equal=bool(torch.equal(y2, y0)),
+                          restored_err=(y2.float() - p2.float()).abs()
+                          .mean().item())
+            # a stale pack (the old weights' output) would break the band
+            if not (err <= band and moved > 2 * band and stale > 2 * band
+                    and torch.equal(y2, y0)
+                    and rec[k]["restored_err"] <= band):
+                emit(rec)
+                raise AssertionError(f"packs {impl}: {k}: {rec[k]}")
+        emit(rec)
+        del tr
+        torch.cuda.empty_cache()
+
+
+def phase_train(torch):
+    """Phase 13: training on the card (see the module docstring)."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="atmvfi_train_")
+    try:
+        tree = vimeo_train_tree(root, repeat=30)  # 300 items: 18 x 16
+        vgg = random_vgg_npz(os.path.join(root, "vgg_random.npz"))
+        phase_train_agreement(torch, vgg)
+        phase_train_packs(torch, tree)
+        phase_train_cli(torch, tree)
+        runs = phase_train_steps(torch, tree, vgg)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return runs
 
 
 def kernel_line(results, launches):
@@ -2505,6 +3151,10 @@ def main() -> int:
             (phase_windows if flag == "--windows" else phase_eval)(torch)
             emit({flag[2:]: "done", "gpu": nvidia_smi_line()})
         return 0
+    if sys.argv[1:] == ["--train"]:
+        phase_train(torch)
+        emit(dict(train="done", gpu=nvidia_smi_line()))
+        return 0
     if sys.argv[1:] == ["--stream"]:
         phase_stream(torch)
         emit(dict(stream="done", gpu=nvidia_smi_line()))
@@ -2539,6 +3189,7 @@ def main() -> int:
     results["attention_tiled"] = [r for r in windows if r.get("tiled")]
     launches["attention_tiled"] = win_launches["atm_block_tiled"]
     phase_eval(torch)
+    phase_train(torch)
     emit(kernel_line(results, launches))
     print(nvidia_smi_line(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -16,6 +16,8 @@ from atmvfi_tpu_torch.models import layers as tlayers
 from atmvfi_tpu_torch.ops import attention_cuda
 from atmvfi_tpu_torch.ops.attention import atm_block_reference
 
+torch.set_num_threads(2)  # the test workers share the CPU
+
 TOL = 2e-5  # f32 everywhere; JAX at HIGHEST matmul precision
 
 

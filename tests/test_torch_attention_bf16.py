@@ -16,6 +16,8 @@ from atmvfi_tpu.ops import attention_pallas as jap
 from atmvfi_tpu_torch import ops
 from atmvfi_tpu_torch.ops import attention as attn_plain
 
+torch.set_num_threads(2)  # the test workers share the CPU
+
 HEADS, BW, MASK_WINDOWS = 2, 4, 2
 
 

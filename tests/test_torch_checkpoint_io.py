@@ -30,6 +30,8 @@ from test_torch_model import (
     _random_params,
 )
 
+torch.set_num_threads(2)  # the test workers share the CPU
+
 
 @pytest.fixture(scope="module")
 def narrow():

@@ -16,6 +16,8 @@ from atmvfi_tpu_torch.ops import conv as plain
 from atmvfi_tpu_torch.ops import conv_cuda, deconv_cuda
 from atmvfi_tpu_torch.parallel import make_mesh, make_spatial_forward
 
+torch.set_num_threads(2)  # the test workers share the CPU
+
 bf16 = torch.bfloat16
 
 

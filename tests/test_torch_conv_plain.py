@@ -12,6 +12,8 @@ from atmvfi_tpu.ops import conv_pallas as jcp
 from atmvfi_tpu.ops import deconv_pallas as jdp
 from atmvfi_tpu_torch.ops import conv_cuda, deconv_cuda
 
+torch.set_num_threads(2)  # the test workers share the CPU
+
 DTYPES = {"f32": (torch.float32, jnp.float32),
           "bf16": (torch.bfloat16, jnp.bfloat16)}
 

@@ -12,6 +12,8 @@ import torch.nn.functional as F
 from atmvfi_tpu_torch.models import Network, get_config
 from atmvfi_tpu_torch.ops import conv_cuda, deconv_cuda
 
+torch.set_num_threads(2)  # the test workers share the CPU
+
 WRAPPERS = (conv_cuda.conv3x3, conv_cuda.conv3x3_s2, conv_cuda.conv3x3_multi,
             deconv_cuda.deconv2x)
 

@@ -23,6 +23,7 @@ from atmvfi_tpu_torch.convert import params_from_jax
 from atmvfi_tpu_torch.evalkit import harness, metrics
 from atmvfi_tpu_torch.utils import images
 from atmvfi_tpu_torch.utils import video as tvideo
+from atmvfi_tpu_torch.utils.resample import pillow_resize
 from test_torch_model import (
     NARROW,
     XLA_ROUTES,
@@ -31,6 +32,8 @@ from test_torch_model import (
     _random_params,
 )
 from test_torch_stream import _jax, _port
+
+torch.set_num_threads(2)  # the test workers share the CPU
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "mini_vimeo")
 
@@ -88,14 +91,15 @@ def test_png_codec_matches_pillow(tmp_path):
     """The reader gives Pillow's RGB pixels for the fixture's PNGs (Paeth,
     Sub and Up rows), for grey, RGB and RGBA files Pillow writes and for
     files with every row filter mixed (Average rows included) or Paeth
-    alone; the writer's file reads back in Pillow byte-equal; a 16-bit
-    PNG and a grey + alpha one raise."""
+    alone; the writer's file reads back in Pillow byte-equal; the codec
+    raises for a 16-bit PNG (which `read_image` then reads with Pillow:
+    tests/test_torch_png.py)."""
     paths = sorted(
         os.path.join(r, f) for r, _, fs in os.walk(FIXTURE) for f in fs
         if f.endswith(".png"))[:6]
     rng = np.random.default_rng(0)
     img = rng.integers(0, 256, (37, 53, 3), dtype=np.uint8)
-    for mode in ("L", "RGB", "RGBA"):
+    for mode in ("L", "LA", "RGB", "RGBA"):
         p = str(tmp_path / f"{mode}.png")
         Image.fromarray(img).convert(mode).save(p)
         paths.append(p)
@@ -117,10 +121,8 @@ def test_png_codec_matches_pillow(tmp_path):
         np.testing.assert_array_equal(np.asarray(im), img)
     np.testing.assert_array_equal(images.read_image(out), img)
     Image.fromarray(np.zeros((4, 4), np.uint16)).save(tmp_path / "d.png")
-    Image.fromarray(img).convert("LA").save(tmp_path / "la.png")
-    for bad in ("d.png", "la.png"):
-        with pytest.raises(ValueError, match="unsupported PNG"):
-            images.read_image(str(tmp_path / bad))
+    with pytest.raises(ValueError, match="unsupported PNG"):
+        images.read_png(str(tmp_path / "d.png"))
 
 
 @pytest.mark.parametrize("src,dst", [((270, 512), (135, 256)),
@@ -131,7 +133,7 @@ def test_area_resize_matches_pillow_box(src, dst):
     rng = np.random.default_rng(src[0])
     img = rng.integers(0, 256, (*src, 3), dtype=np.uint8)
     want = np.asarray(Image.fromarray(img).resize(dst[::-1], Image.BOX))
-    got = harness._area_resize(img, dst[1], dst[0])
+    got = pillow_resize(img, dst[1], dst[0], "box")
     np.testing.assert_array_equal(got, want)
     np.testing.assert_array_equal(got, jharness._area_resize(img, dst[1],
                                                              dst[0]))

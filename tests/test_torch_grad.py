@@ -28,6 +28,8 @@ from atmvfi_tpu_torch.ops import warp as twarp
 from test_torch_attention import _block_inputs
 from test_torch_ops import _edge_flow
 
+torch.set_num_threads(2)  # the test workers share the CPU
+
 
 def _t(rng, *shape, scale=1.0, grad=True):
     x = torch.from_numpy((rng.standard_normal(shape) * scale)

@@ -18,6 +18,8 @@ from atmvfi_tpu_torch.convert import load_checkpoint, load_npz, params_from_jax
 from atmvfi_tpu_torch.infer import InterpolationPipeline
 from atmvfi_tpu_torch.models import Network, get_config
 
+torch.set_num_threads(2)  # the test workers share the CPU
+
 # narrow lite: every token width divisible by the 8 heads
 NARROW = dict(hidden_dims=(8, 16, 16, 32), last_feat_extra=16,
               global_mlp_hidden=64, refine_hidden=16)

@@ -12,6 +12,8 @@ from atmvfi_tpu_torch import ops as tops
 from atmvfi_tpu_torch.ops import warp as twarp
 from atmvfi_tpu_torch.ops import warp_cuda
 
+torch.set_num_threads(2)  # the test workers share the CPU
+
 
 @pytest.mark.parametrize("h,w,ws,shift", [
     (12, 20, 8, 0),   # center-pads both axes

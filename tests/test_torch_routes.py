@@ -35,6 +35,8 @@ from test_torch_model import (
     _random_params,
 )
 
+torch.set_num_threads(2)  # the test workers share the CPU
+
 ROUTES = dict(attention_impl="pallas", warp_impl="tiled_blend",
               hcw_fuse_pairs=True)
 JAX_XLA_CONVS = dict(conv_impl="xla", tail_planar="off")

@@ -22,6 +22,8 @@ from atmvfi_tpu_torch.parallel import (
     spatial_ici_bytes_deep,
 )
 
+torch.set_num_threads(2)  # the test workers share the CPU
+
 def _flows(rng, H, W, mag=3.0):
     """Flows whose taps leave the image on every side, some far."""
     f = rng.standard_normal((1, H, W, 2)).astype(np.float32) * mag

@@ -35,6 +35,8 @@ from test_torch_model import (
     _random_params,
 )
 
+torch.set_num_threads(2)  # the test workers share the CPU
+
 W = 64  # frame width of the forward tests
 
 

@@ -31,6 +31,8 @@ from test_torch_model import (
     _random_params,
 )
 
+torch.set_num_threads(2)  # the test workers share the CPU
+
 WRAPPERS = (attention_cuda.atm_block, attention_cuda.window_attention,
             warp_cuda.flow_warp_pair, warp_cuda.flow_warp,
             warp_cuda.flow_warp_blend, conv_cuda.conv3x3,

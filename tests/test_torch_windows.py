@@ -22,6 +22,8 @@ from test_torch_model import (
     _random_params,
 )
 
+torch.set_num_threads(2)  # the test workers share the CPU
+
 
 @pytest.mark.parametrize("windows", [(16, 16, 16), (13, 13, 8)])
 def test_large_window_forward_matches_jax(windows):
