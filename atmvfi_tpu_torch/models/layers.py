@@ -284,6 +284,15 @@ def _device_rel(window: int, device: torch.device) -> torch.Tensor:
         return ops.relative_coords(window, device)
 
 
+def clear_caches() -> None:
+    """Drop the window masks and coordinates kept on devices; the next
+    forward rebuilds them bit-identically. A forward on fake tensors
+    (a count of its work) calls this before and after, so that no fake
+    tensor stays in them."""
+    _device_mask.cache_clear()
+    _device_rel.cache_clear()
+
+
 class AttentionToMotion(nn.Module):
     """Cross-frame window attention emitting appearance + motion.
 

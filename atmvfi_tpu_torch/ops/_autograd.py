@@ -18,10 +18,23 @@ no autograd bookkeeping.
 Arguments may be tensors, None, Python values or lists/tuples of
 tensors (a conv's sources); outputs a tensor or a tuple of tensors and
 Nones.
+
+`kernel_wrapper(plain)` decorates every public kernel wrapper: the one
+seam through which a counter sees kernels as the functions they compute.
+A counter is a dispatch mode (`TorchDispatchMode`) with a method
+`kernel_call(name, plain, args, kwargs)`; the counted roofline's
+`Count` is one. While such a mode is on the dispatch stack, the wrapper
+hands its call to the innermost one, which runs `plain` (the plain
+version, taking the wrapper's arguments) under it, whatever the device,
+and neither the wrapper's calls nor its launches count; otherwise the
+wrapper runs.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
 
 
 def _tensors(args):
@@ -110,3 +123,18 @@ def launch(kernel, plain, *args):
         return kernel(*args)
     flat, spec = _flatten(args)
     return _KernelFunction.apply(kernel, plain, spec, *flat)
+
+
+def kernel_wrapper(plain):
+    """Decorator of a kernel wrapper whose plain version `plain` takes
+    the same arguments (see the module doc)."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def wrapper(*args, **kwargs):
+            for mode in reversed(_get_current_dispatch_mode_stack()):
+                kernel_call = getattr(mode, "kernel_call", None)
+                if kernel_call is not None:
+                    return kernel_call(fn.__name__, plain, args, kwargs)
+            return fn(*args, **kwargs)
+        return wrapper
+    return deco

@@ -153,6 +153,9 @@ def _declare(lib) -> None:
     lib.warp_blend_f32.argtypes = [P, P, P, P, P, P, I, I, I, I,
                                    ctypes.c_int64, P]
     lib.warp_blend_f32.restype = I
+    # a, b, out, M, N, K, stream (row P's gridded matmul)
+    lib.grid_matmul_f32.argtypes = [P, P, P, I, I, I, P]
+    lib.grid_matmul_f32.restype = I
     # bf16 weight [N, K], N, K, CUtensorMap out (128 bytes)
     lib.atm_block_weight_map.argtypes = [P, I, I, P]
     lib.atm_block_weight_map.restype = I

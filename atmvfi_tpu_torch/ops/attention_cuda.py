@@ -191,6 +191,7 @@ def block_launches(*args):
     return run, dict(scratch, y=y, motion=motion)
 
 
+@_autograd.kernel_wrapper(atm_block_reference)
 def atm_block(x, wq, wkv, wproj, bproj, ln_g, ln_b, scale: float,
               rel: Optional[torch.Tensor], mask: Optional[torch.Tensor],
               num_heads: int, swap_halves: bool):
@@ -267,6 +268,7 @@ def _launch_packed(q, kv, scale, rel, mask, num_heads):
     return out, motion
 
 
+@_autograd.kernel_wrapper(window_attention_plain)
 def window_attention(q, kv, scale: float, rel: Optional[torch.Tensor],
                      mask: Optional[torch.Tensor], num_heads: int):
     """K7: attention + motion on packed q [BW, N, C], kv [BW, N, 2C];
@@ -298,6 +300,7 @@ def _launch_heads(q, k, v, scale, rel, mask):
     return out, motion
 
 
+@_autograd.kernel_wrapper(window_attention_heads_plain)
 def window_attention_heads(q, k, v, scale: float,
                            rel: Optional[torch.Tensor],
                            mask: Optional[torch.Tensor]):

@@ -328,7 +328,7 @@ def _run(fn, entry: str, sources, weight, bias, slope, stride, dtype):
     return out
 
 
-def _conv3x3_plain1(x, weight, bias, slope, stride=1):
+def _conv3x3_plain1(x, weight, bias, slope=None, stride=1):
     return conv3x3_plain([x], weight, bias, slope, stride, x.dtype)
 
 
@@ -345,12 +345,15 @@ def _run_single(fn, entry: str, x, weight, bias, slope, stride: int):
     return out
 
 
+@_autograd.kernel_wrapper(_conv3x3_plain1)
 def conv3x3(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
             slope: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K3: stride-1 3x3 conv + bias (+ PReLU) in x's type."""
     return _run_single(conv3x3, "conv3x3", x, weight, bias, slope, 1)
 
 
+@_autograd.kernel_wrapper(
+    lambda x, w, b, s=None: _conv3x3_plain1(x, w, b, s, 2))
 def conv3x3_s2(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                slope: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K4: stride-2 3x3 conv + bias (+ PReLU) in x's type."""
@@ -480,6 +483,9 @@ def _multi_plain(sources, weight, bias, slope):
     return conv3x3_plain(sources, weight, bias, slope, 1, torch.bfloat16)
 
 
+@_autograd.kernel_wrapper(
+    lambda sources, w, b, s=None, dtype=None: conv3x3_plain(
+        list(sources), w, b, s, 1, dtype))
 def conv3x3_multi(sources: Sequence[torch.Tensor], weight: torch.Tensor,
                   bias: torch.Tensor, slope: Optional[torch.Tensor] = None,
                   dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -524,6 +530,7 @@ def _launch_pair(x, wa, ba, sa, wb, bb, sb):
     return out
 
 
+@_autograd.kernel_wrapper(conv3x3_pair_plain)
 def conv3x3_pair(x: torch.Tensor, wa: torch.Tensor, ba: torch.Tensor,
                  sa: Optional[torch.Tensor], wb: torch.Tensor,
                  bb: torch.Tensor,

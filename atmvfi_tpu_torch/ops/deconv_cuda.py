@@ -125,6 +125,7 @@ def _launch(x, weight, bias, slope):
     return out
 
 
+@_autograd.kernel_wrapper(deconv2x_plain)
 def deconv2x(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
              slope: Optional[torch.Tensor] = None) -> torch.Tensor:
     """K6: ConvTranspose(k=2, s=2) + bias (+ PReLU) in x's type."""

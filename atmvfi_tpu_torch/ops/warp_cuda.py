@@ -93,6 +93,7 @@ def _pair_plain(im0, im1, flow0, flow1):
     return flow_warp_plain(im0, flow0), flow_warp_plain(im1, flow1)
 
 
+@_autograd.kernel_wrapper(flow_warp_plain)
 def flow_warp(feature: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     """Backward-warp `feature` [B, H, W, C] by `flow` [B, H, W, 2]."""
     flow_warp.calls += 1
@@ -106,6 +107,7 @@ def flow_warp(feature: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
     return out
 
 
+@_autograd.kernel_wrapper(_pair_plain)
 def flow_warp_pair(im0: torch.Tensor, im1: torch.Tensor, flow0: torch.Tensor,
                    flow1: torch.Tensor):
     """(warp(im0, flow0), warp(im1, flow1)) in one launch on the card."""
@@ -147,6 +149,7 @@ def _launch_blend(im0, im1, flow0, flow1, occ):
     return out
 
 
+@_autograd.kernel_wrapper(flow_warp_blend_plain)
 def flow_warp_blend(im0: torch.Tensor, im1: torch.Tensor, flow0: torch.Tensor,
                     flow1: torch.Tensor, occ: torch.Tensor) -> torch.Tensor:
     """K9: occ * warp(im0, flow0) + (1 - occ) * warp(im1, flow1) on f32
@@ -195,6 +198,7 @@ def _launch_srcfull(im0_full, im1_full, flow0, flow1, row0):
     return outs[0], outs[1]
 
 
+@_autograd.kernel_wrapper(srcfull_plain)
 def warp_pair_srcfull(im0_full: torch.Tensor, im1_full: torch.Tensor,
                       flow0: torch.Tensor, flow1: torch.Tensor, row0: int):
     """K10: full f32 sources [1, H_full, W, C] warped onto output rows
@@ -228,6 +232,7 @@ def _launch_rows(feature, flow_rows, row0):
     return out
 
 
+@_autograd.kernel_wrapper(flow_warp_rows_plain)
 def flow_warp_rows(feature: torch.Tensor, flow_rows: torch.Tensor,
                    row0: int) -> torch.Tensor:
     """The full `feature` [B, H, W, C] (f32 / bf16) warped onto output

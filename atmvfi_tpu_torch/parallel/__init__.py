@@ -9,6 +9,8 @@ from atmvfi_tpu_torch.parallel.mesh import (
 from atmvfi_tpu_torch.parallel.spatial import (
     Gather,
     Replicated,
+    deep_shard_projection,
+    make_deep_shard_sim,
     make_dp_forward,
     make_spatial_forward,
     run_lockstep,
@@ -22,6 +24,8 @@ __all__ = [
     "Gather",
     "Replicated",
     "SPATIAL_AXIS",
+    "deep_shard_projection",
+    "make_deep_shard_sim",
     "make_dp_forward",
     "make_mesh",
     "make_spatial_forward",

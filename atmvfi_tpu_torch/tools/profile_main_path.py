@@ -11,7 +11,8 @@ five frames under torch.profiler after a warm-up and prints one JSON
 line: host-clock ms per frame, device busy ms per frame
 (the sum of kernel times), the device's idle share over the profiled
 window, device ms per forward stage (the `span` ranges of
-models/network.py), per kernel family and per kernel. With
+models/network.py), per kernel family and per kernel, all read from the
+trace by `utils.profiling` (`capture`, `summarize`, its `FAMILIES`). With
 --spatial_shards N the forward is the row-sharded schedule with N
 shards on the card (`parallel.make_spatial_forward`), whose stages are
 the shards' front, middle and tail ranges, the gathers and the work
@@ -22,40 +23,10 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
 import subprocess
 import sys
+import tempfile
 import time
-from collections import defaultdict
-
-STAGES = ("encoder", "global_motion", "prealign", "local_motion", "enhance",
-          "decoder", "refine", "front", "middle", "tail", "gather",
-          "replicated")
-FAMILIES = (  # first match wins
-    ("K12 conv pair", r"pair_bf16_kernel|pair_f32_kernel"),
-    # K5 on K3's wgmma kernel (mode 1) or its folded body; K6 on wgmma
-    ("K5 multi-source conv", r"conv3x3_wgmma_kernel<\d+, ?1, ?1>|"
-                             r"conv3x3_fold_kernel"),
-    ("K6 deconv", r"deconv2x_wgmma_kernel"),
-    # K3 / K4; the implicit GEMM (igemm_*) also runs K5 / K6 where their
-    # sources take no TMA map (f32, odd layouts: off the bf16 main path)
-    ("K3 / K4 conv kernels", r"igemm_|conv3x3_wgmma_kernel"),
-    ("K1 GEMM launches", r"::lg::|gemm_f32_kernel"),
-    ("K1 / K7 attention launch", r"attn_(mma_)?kernel"),
-    ("K2 / K9 / K10 warp", r"warp_narrow_kernel|warp_wide_kernel|"
-                           r"warp_blend_kernel"),
-    ("conv (cuDNN)", r"conv|cudnn|fprop|dgrad|wgrad|implicit|nchw|nhwc"),
-    ("dense (cuBLAS)", r"gemm|cublas|nvjet"),
-    ("elementwise / copy", r"elementwise|vectorized|copy|cat|index|pad|"
-                           r"roll|reduce|softmax|layer_norm|Memcpy|Memset"),
-)
-
-
-def family(name: str) -> str:
-    for fam, pat in FAMILIES:
-        if re.search(pat, name, re.IGNORECASE):
-            return fam
-    return "other"
 
 
 def main(argv=None) -> int:
@@ -74,12 +45,11 @@ def main(argv=None) -> int:
     import dataclasses
 
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from atmvfi_tpu_torch.infer import InterpolationPipeline
     from atmvfi_tpu_torch.models import get_config
     from atmvfi_tpu_torch.parallel import make_mesh
+    from atmvfi_tpu_torch.utils import profiling
 
     if not torch.cuda.is_available():
         print("profile_main_path: no CUDA device", file=sys.stderr)
@@ -100,38 +70,18 @@ def main(argv=None) -> int:
     for _ in range(2):
         pipe.interpolate_device(x0, x1)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def frames_run():  # host clock of the frames, not of the export
         t0 = time.perf_counter()
         for _ in range(frames):
             pipe.interpolate_device(x0, x1)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        return time.perf_counter() - t0
 
-    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    ranges = [(e.name, e.time_range.start, e.time_range.end)
-              for e in dev if e.name in STAGES]
-    kernels = [e for e in dev if e.name not in STAGES]
-    if not kernels:
-        raise RuntimeError("the profiler recorded no device kernels")
-    by_stage = defaultdict(float)
-    by_family = defaultdict(float)
-    by_kernel = defaultdict(lambda: [0.0, 0])
-    busy = 0.0
-    for k in kernels:
-        us = k.time_range.elapsed_us()
-        busy += us
-        by_family[family(k.name)] += us
-        rec = by_kernel[k.name]
-        rec[0] += us
-        rec[1] += 1
-        stage = next((s for s, a, b in ranges
-                      if a <= k.time_range.start < b), "unattributed")
-        by_stage[stage] += us
-    span_us = (max(k.time_range.end for k in kernels)
-               - min(k.time_range.start for k in kernels))
-    ms = lambda us: us / 1e3 / frames  # noqa: E731  per frame
-    top = sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:20]
+    with tempfile.TemporaryDirectory() as trace_dir:
+        wall, _ = profiling.capture(frames_run, trace_dir=trace_dir)
+        summary = profiling.summarize(trace_dir, top=20)
+    ms = lambda v: v / frames  # noqa: E731  per frame
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True).stdout.strip()
@@ -142,15 +92,14 @@ def main(argv=None) -> int:
         compose_full_res_warps=pipe.cfg.compose_full_res_warps,
         spatial_shards=n, frames=frames, gpu=smi,
         wall_ms_per_frame=wall * 1e3 / frames,
-        device_busy_ms_per_frame=ms(busy),
-        idle_share=1.0 - busy / span_us,
-        stages_ms={s: ms(v) for s, v in sorted(by_stage.items(),
-                                               key=lambda kv: -kv[1])},
-        families_ms={f: ms(v) for f, v in sorted(by_family.items(),
-                                                 key=lambda kv: -kv[1])},
-        top_kernels=[dict(name=k[:120], ms=ms(v[0]),
-                          calls_per_frame=v[1] / frames)
-                     for k, v in top],
+        device_busy_ms_per_frame=ms(summary["total_ms"]),
+        idle_share=summary["idle_share"],
+        stages_ms={s: ms(v) for s, v in summary["by_source_ms"].items()},
+        families_ms={f: ms(v) for f, v in
+                     summary["by_category_ms"].items()},
+        top_kernels=[dict(name=k[:120], ms=ms(v["ms"]),
+                          calls_per_frame=v["calls"] / frames)
+                     for k, v in summary["by_kernel"].items()],
     )), flush=True)
     return 0
 

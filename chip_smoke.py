@@ -11,6 +11,8 @@
     python3 chip_smoke.py --eval   # the build and phase 12 alone
     python3 chip_smoke.py --windows --eval   # both, one build
     python3 chip_smoke.py --train   # the build and phase 13 alone
+    python3 chip_smoke.py --roofline   # the build, K2's spread gather,
+                                       # phase 5's default run and phase 14
 
 Phases, one JSON object per line:
   1. device: the card (nvidia-smi name and power limit), torch and CUDA
@@ -37,7 +39,14 @@ Phases, one JSON object per line:
      Five repeated launches at each site are bit-equal. K1 at the base
      local, global and enhancement and the lite local and global shapes;
      in bf16 its three launches are also timed apart, each beside its
-     bound and a library yardstick.
+     bound and a library yardstick. Row P's warp-v2 loop probes: K2's
+     exact gather of p6's pattern (an 8 x 128 tile whose pixels read
+     rows 9 + i + (l % 3), a spread of 3, of a 64 x 128 map; integer
+     flows), single and pair, f32 and bf16, max |d| 0 against numpy.
+     Every bound of phases 3, 4 and 7 is the counted roofline's count of
+     the call (`utils/roofline.py`: the wrapper's plain version on fake
+     copies of the card tensors), but K10's and the row warp's, whose
+     bytes depend on the rows the flows reach: there the hand count.
   4. route kernels: K7 / K8 (window attention + motion, packed and
      head-major; the launch K1 runs too) at the three base window shapes
      and at the lite local and global ones (head dims 28 and 44), f32
@@ -156,6 +165,23 @@ Phases, one JSON object per line:
      (foreach and fused AdamW) equal their plain versions on the new
      weights, and after `restore_train_state` the pre-step outputs, bit
      for bit.
+ 14. roofline (run after phase 7, before phase 8): (a) row P's gridded matmul ([128, 64] @ [64, 64] f32,
+     `csrc/grid_matmul.cu`) through `grid_probe`, every count set to
+     0 just before and read just after (one launch), against the f64
+     product (max |d| <= 1e-5 of the scale, reported apart as
+     `f64_rel_err`) and its plain version (`max_abs_err`); its
+     count on card tensors exactly 2 * 2 * 64**3 tc FLOPs; its time,
+     the plain version's and torch.matmul's (CUDA events), its bound.
+     (b) each timed case of phases 3, 4 and 7: the tool's bytes and
+     FLOPs beside the hand counts, per kernel, the cases more than 10 %
+     apart listed. (c) `model_roofline` of base and lite, bf16, at
+     1088x1920 and 2176x3840 (on the host, fake tensors), base 1080p
+     beside phase 5's ms/frame as a share of SOL. (d)
+     `profiling.capture` / `summarize` over 3 base 1080p frames: device
+     busy ms per frame by family and stage, idle share. (e)
+     `parallel.make_deep_shard_sim` at n = 2 and 4, 1080p: ms per shard
+     program (median of 7, CUDA events), bytes between devices, the
+     projected fps at NVLink 4's 450 GB/s one way.
 Then the {"kernels": [...]} line (the key-tiled attention as
 "attention_tiled", its launches from phase 11's 1080p run), the card's
 name and power limit, and the last line {"ok": true, "device": {...}}.
@@ -165,7 +191,8 @@ with --k1-launches only the build and the K1 cases of phase 3; with
 --route-kernels only the build and phase 4; with --gradients only the
 build and phase 10; with --stream only the build and phase 5b; with
 --windows and / or --eval only the build and phases 11 / 12; with
---train only the build and phase 13.
+--train only the build and phase 13; with --roofline the build, K2's
+spread gather, phase 5's default run and phase 14.
 Any failed phase raises and the script exits non-zero; without a CUDA
 device, or without the repo beside it, it exits non-zero before
 printing any result.
@@ -176,6 +203,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -376,6 +404,65 @@ def bound_ms(nbytes: float, flops: float, dtype: str):
                                      "operations")
 
 
+# (b) of the roofline phase: each timed kernel case's count by the
+# counted roofline (utils/roofline.py) beside its hand count
+COUNT_ROWS = []
+# kernels whose bytes depend on the flows' data (the source rows they
+# reach): the hand count reads the data, the tool charges the whole
+# source, so the hand count stays their byte count
+HAND_BYTES = ("K10 warp_pair_srcfull", "flow_warp_rows")
+# kernels whose plain version emulates a per-pixel gather: the tool
+# would charge its index arithmetic (floor, clamps, compares, an integer
+# index a tap) as the function's work, so the hand count of the taps'
+# multiply-adds and weights stays their FLOP count
+HAND_FLOPS = ("K2 flow_warp", "K2 flow_warp_pair", "K9 flow_warp_blend",
+              "K10 warp_pair_srcfull", "flow_warp_rows")
+
+
+def counted_bound(kernel: str, case: str, run, hand_bytes: float,
+                  hand_flops: float, hand_dtype: str, read_as=()):
+    """(bound_ms, bound_by, bytes, flops) of one kernel call run(): the
+    counted roofline's count of it (the wrapper's plain version on fake
+    copies of the card tensors: no launch), the one count of the bound
+    (bf16 tc work at the tensor cores' rate, f32 tc and simt work at the
+    CUDA cores' f32 rate, units overlapping), except for the bytes of
+    HAND_BYTES kernels and the FLOPs of HAND_FLOPS kernels, which are the
+    hand count's. `read_as` holds (tensor, element size) pairs of the
+    operands that the kernel reads at another width than the wrapper is
+    given (K1's weights, read from their cached packs in the working
+    type): the tool's bytes count them at that width. The hand count is
+    kept beside the tool's in COUNT_ROWS."""
+    from atmvfi_tpu_torch.utils import roofline
+
+    c = roofline.count_flops(run)
+    nbytes = c["bytes_min"] - sum(t.numel() * (t.element_size() - size)
+                                  for t, size in read_as)
+    flops = c["total_flops"]
+    t_mem = nbytes / HBM_BYTES_PER_S
+    t_ops = max(c["tc_bf16_flops"] / PEAK_FLOPS["bf16"],
+                (c["tc_f32_flops"] + c["simt_flops"]) / PEAK_FLOPS["f32"])
+    tool_ms = max(t_mem, t_ops) * 1e3
+    hand_ms, _ = bound_ms(hand_bytes, hand_flops, hand_dtype)
+    used = {"bytes": "hand" if kernel in HAND_BYTES else "tool",
+            "flops": "hand" if kernel in HAND_FLOPS else "tool"}
+    COUNT_ROWS.append(dict(
+        kernel=kernel, case=case, tool_bytes=nbytes,
+        tool_operand_bytes=c["bytes_min"], hand_bytes=hand_bytes,
+        bytes_ratio=nbytes / hand_bytes, tool_flops=flops,
+        tool_tc_bf16_flops=c["tc_bf16_flops"],
+        tool_tc_f32_flops=c["tc_f32_flops"], tool_simt_flops=c["simt_flops"],
+        hand_flops=hand_flops, hand_dtype=hand_dtype,
+        flops_ratio=flops / hand_flops if hand_flops else None,
+        tool_bound_ms=tool_ms, hand_bound_ms=hand_ms,
+        bound_ratio=tool_ms / hand_ms, used=used))
+    if used["bytes"] == "hand":
+        nbytes, t_mem = hand_bytes, hand_bytes / HBM_BYTES_PER_S
+    if used["flops"] == "hand":
+        flops, t_ops = hand_flops, hand_flops / PEAK_FLOPS[hand_dtype]
+    return (max(t_mem, t_ops) * 1e3,
+            "bytes" if t_mem >= t_ops else "operations", nbytes, flops)
+
+
 def edge_flow(torch, g, B: int, H: int, W: int, mag: float):
     """Random flows of magnitude `mag`, pushed outward near the border
     so taps fall off every edge."""
@@ -565,7 +652,12 @@ def phase_kernels(torch, k1_only: bool = False):
                     ms = cuda_ms(lambda: attention_cuda.atm_block(*args), 10)
                     plain = cuda_ms(lambda: atm_block_reference(*args), 10)
                 dt = "f32" if dtype == torch.float32 else "bf16"
-                b_ms, b_by = bound_ms(nbytes, flops, dt)
+                # the kernel reads [wq | wkv], wproj and bproj from their
+                # packs in the working type
+                b_ms, b_by, nbytes, flops = counted_bound(
+                    "K1 atm_block", f"{which} {dt}",
+                    lambda: attention_cuda.atm_block(*args), nbytes, flops,
+                    dt, [(w, args[0].element_size()) for w in args[1:5]])
                 rec = dict(phase="kernel", kernel="K1 atm_block", case=which,
                            dtype=dt, **info, max_abs_err=dy.max().item(),
                            mean_abs_err=dy.mean().item(),
@@ -635,7 +727,9 @@ def phase_kernels(torch, k1_only: bool = False):
             nbytes = n_img * B * H * W * (2 * C * s + 2 * 4)
             flops = n_img * B * H * W * (7 * C + 12)
             dt = "f32" if dtype == torch.float32 else "bf16"
-            b_ms, b_by = bound_ms(nbytes, flops, "f32")
+            b_ms, b_by, nbytes, flops = counted_bound(
+                f"K2 {kind}", f"{list(shape)} {dt}", run, nbytes, flops,
+                "f32")
             rec = dict(phase="kernel", kernel=f"K2 {kind}", shape=list(shape),
                        dtype=dt, per_forward=n, max_abs_err=err, ms=ms,
                        plain_ms=plain_ms, library_ms=lib_ms,
@@ -647,7 +741,35 @@ def phase_kernels(torch, k1_only: bool = False):
                 raise AssertionError(f"K2 {kind} {shape} {dt}: max |d| "
                                      f"{err} > {lim}")
             results[kind].append(rec)
+    phase_spread_gather(torch)
     return results
+
+
+def phase_spread_gather(torch):
+    """Row P's warp-v2 loop probes on K2: p6's gather (an 8 x 128 tile
+    whose pixels read rows 9 + i + (l % 3), a spread of 3, and columns
+    (7 l + i) % 128 of a 64 x 128 f32 map) as an integer flow, single and
+    pair forms, f32 and bf16: max |d| 0 against numpy's x[row, col]."""
+    from atmvfi_tpu_torch.ops import probe_cuda, warp_cuda
+
+    x, flow, want = probe_cuda.spread_gather_case()
+    for dtype in (torch.float32, torch.bfloat16):
+        xt = torch.from_numpy(x).cuda().to(dtype)
+        ft = torch.from_numpy(flow).cuda()
+        wt = torch.from_numpy(want).cuda()
+        with torch.no_grad():
+            outs = {"single": [warp_cuda.flow_warp(xt, ft)],
+                    "pair": list(warp_cuda.flow_warp_pair(xt, xt, ft, ft))}
+        torch.cuda.synchronize()
+        for form, os_ in outs.items():
+            err = max((o.float() - wt).abs().max().item() for o in os_)
+            emit(dict(phase="kernel", kernel="K2 spread gather (row P)",
+                      form=form, dtype=str(dtype).split(".")[-1],
+                      shape=list(x.shape), row_spread=3, max_abs_err=err,
+                      exact=err == 0))
+            if err != 0 or any(o.dtype != dtype for o in os_):
+                raise AssertionError(f"K2 spread gather {form} {dtype}: "
+                                     f"max |d| {err} (must be 0)")
 
 
 def phase_conv_kernels(torch):
@@ -806,7 +928,8 @@ def phase_conv_kernels(torch):
                   + 2 * out_px * cout)
         flops = (2 * B * H * W * 4 * cout * cin if deconv
                  else 2 * out_px * cout * 9 * cin)
-        b_ms, b_by = bound_ms(nbytes, flops, "bf16")
+        b_ms, b_by, nbytes, flops = counted_bound(kind, site, run, nbytes,
+                                                  flops, "bf16")
         (f_max, _), (h_max, h_mean) = err[torch.float32], err[bf16]
         rec = dict(phase="kernel", kernel=kind, site=site,
                    sources=[list(s[:4]) + ["f32" if s[4] else "work"]
@@ -918,8 +1041,10 @@ def phase_route_kernels(torch):
                 flops = (4 * BW * heads * N * N * hd
                          + (4 * BW * heads * N * N if motion else 0))
                 dt = "f32" if dtype == torch.float32 else "bf16"
-                b_ms, b_by = bound_ms(nbytes, flops, dt)
                 name = "K7" if kind == "window_attention" else "K8"
+                b_ms, b_by, nbytes, flops = counted_bound(
+                    f"{name} {kind}", f"{site} {dt}", lambda: fn(*args),
+                    nbytes, flops, dt)
                 rec = dict(phase="kernel", kernel=f"{name} {kind}", case=site,
                            dtype=dt, BW=BW, N=N, C=C, heads=heads,
                            mask=mask is not None, motion=motion,
@@ -994,7 +1119,10 @@ def phase_route_kernels(torch):
             "k2_pair_blend_smooth": graph_ms(k2_pair_blend)})
         err = max(err, smooth_err.item())
         nbytes = H * W * (2 * 3 * 4 + 2 * 2 * 4 + 4 + 3 * 4)
-        b_ms, b_by = bound_ms(nbytes, H * W * (14 * 3 + 30), "f32")
+        b_ms, b_by, nbytes, _ = counted_bound(
+            "K9 flow_warp_blend", f"{H}x{W}",
+            lambda: warp_cuda.flow_warp_blend(*args), nbytes,
+            H * W * (14 * 3 + 30), "f32")
         rec = dict(phase="kernel", kernel="K9 flow_warp_blend",
                    shape=[1, H, W, 3], dtype="f32", per_forward=1,
                    max_abs_err=err, k2_pair_blend_max_abs_err=pair_err,
@@ -1079,7 +1207,8 @@ def phase_route_kernels(torch):
         nbytes = (H * W * (cin + cout) * 2
                   + 4 * (wa.numel() + wb.numel()) + 4 * 2 * (cmid + cout))
         flops = 2 * H * W * 9 * (cin * cmid + cmid * cout)
-        b_ms, b_by = bound_ms(nbytes, flops, "bf16")
+        b_ms, b_by, nbytes, flops = counted_bound(
+            "K12 conv3x3_pair", site, run, nbytes, flops, "bf16")
         (f_max, _), (h_max, h_mean) = err[torch.float32], err[bf16]
         rec = dict(phase="kernel", kernel="K12 conv3x3_pair", site=site,
                    shape=[1, H, W], channels=[cin, cmid, cout],
@@ -1152,6 +1281,7 @@ COUNTED = {  # wrapper name -> (module, attribute) of every kernel wrapper
     "deconv2x": ("deconv_cuda", "deconv2x"),
     "warp_pair_srcfull": ("warp_cuda", "warp_pair_srcfull"),
     "flow_warp_rows": ("warp_cuda", "flow_warp_rows"),
+    "grid_matmul": ("probe_cuda", "grid_matmul"),
 }
 
 
@@ -1205,6 +1335,9 @@ def check_launches(name: str, launches: dict, per_forward: dict,
                                  f"{per_forward.get(k, 0)} each")
 
 
+MEASURED = {}  # ms per frame of each main-path run (phase 5), by config
+
+
 def phase_main_path(torch, name: str, routes: dict, fast: bool,
                     per_forward: dict, frames: int):
     """One run of the serving path; every wrapper's count is set to 0
@@ -1236,6 +1369,7 @@ def phase_main_path(torch, name: str, routes: dict, fast: bool,
     # the middle frame of a shifted pair lies near both inputs
     f0, f1 = pairs[1]
     err = float(abs(outs[0].astype("float32") - f0.astype("float32")).mean())
+    MEASURED[name] = dt * 1e3 / n
     emit(dict(phase="main_path", config=name, model="base", dtype="bf16",
               routes=routes, fast=fast, frames=n, size=[1080, 1920],
               padded=[1088, 1920], ms_per_frame=dt * 1e3 / n,
@@ -1947,7 +2081,9 @@ def phase_row_warps(torch):
             src_rows = sum(rows_reached(torch, f, row0, H, True) for f in fl)
             nbytes = (2 * h * W * (3 * 4 + 2 * 4)   # outputs + flows
                       + src_rows * W * 3 * 4)       # source rows reached
-            b_ms, b_by = bound_ms(nbytes, 2 * h * W * (7 * 3 + 14), "f32")
+            b_ms, b_by, nbytes, _ = counted_bound(
+                "K10 warp_pair_srcfull", f"{n} shards, shard {i}", run,
+                nbytes, 2 * h * W * (7 * 3 + 14), "f32")
             rec = dict(phase="kernel", kernel="K10 warp_pair_srcfull",
                        shards=n, shard=i, row0=row0, out_rows=h,
                        source=[1, H, W, 3], dtype="f32", per_forward=2,
@@ -1991,7 +2127,9 @@ def phase_row_warps(torch):
                                 cuda_ms(lib, 100))
         nbytes = (h * 240 * (384 * 2 + 2 * 4)
                   + rows_reached(torch, fl, row0, 136, False) * 240 * 384 * 2)
-        b_ms, b_by = bound_ms(nbytes, h * 240 * (7 * 384 + 14), "f32")
+        b_ms, b_by, nbytes, _ = counted_bound(
+            "flow_warp_rows", site, run, nbytes, h * 240 * (7 * 384 + 14),
+            "f32")
         rec = dict(phase="kernel", kernel="flow_warp_rows", site=site,
                    out_rows=h, row0=row0, source=[1, 136, 240, 384],
                    pixel_stride=src.stride(2), dtype="bf16", per_forward=per,
@@ -2902,6 +3040,211 @@ def phase_train(torch):
     return runs
 
 
+# ---- phase 14: the counted roofline -------------------------------------
+ROOFLINE_SIZES = ((1088, 1920), (2176, 3840))
+SIM_REPEATS = 7  # timed runs of each deep-shard program (median)
+
+
+def grid_probe(torch, seed: int = 0):
+    """Row P's check of the counter through a kernel grid: the gridded
+    matmul [128, 64] @ [64, 64] (its CUDA kernel) against the f64
+    product of the same operands, and its count on those card tensors,
+    which walks the kernel's grid: 2 * 2 * 64**3 tc FLOPs."""
+    from atmvfi_tpu_torch.ops import probe_cuda
+    from atmvfi_tpu_torch.utils import roofline
+
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randn(128, 64, generator=g)
+    b = torch.randn(64, 64, generator=g)
+    want = (a.double() @ b.double()).float()
+    a, b = a.cuda(), b.cuda()
+    with torch.no_grad():
+        out = probe_cuda.grid_matmul(a, b).cpu()
+    return {"tc_flops": roofline.count_flops(probe_cuda.grid_matmul, a,
+                                             b)["tc_flops"],
+            "f64_max_abs_err": (out - want).abs().max().item(),
+            "scale": want.abs().max().item()}
+
+
+def phase_roofline(torch):
+    """(a) row P's gridded matmul through `grid_probe` (every count
+    set to 0 just before, read just after: one grid_matmul launch), its
+    count on card tensors, timings and bound; (b) the counted roofline
+    beside the hand counts of phases 3, 4 and 7; (c) `model_roofline` of
+    base and lite at 1088x1920 and 2176x3840 beside phase 5's ms/frame;
+    (d) `profiling.capture` / `summarize` over 3 base 1080p frames; (e)
+    the deep-shard simulation at n = 2 and 4. Returns the grid_matmul
+    record and its launches."""
+    from atmvfi_tpu_torch.infer import InterpolationPipeline
+    from atmvfi_tpu_torch.ops import probe_cuda
+    from atmvfi_tpu_torch.parallel import (
+        deep_shard_projection,
+        make_deep_shard_sim,
+    )
+    from atmvfi_tpu_torch.utils import profiling, roofline
+
+    # (a) the probe: the kernel, its count on card tensors
+    counters = wrapper_counters()
+    reset_counts(counters)
+    probe = grid_probe(torch)
+    launches = read_counts(counters)
+    check_launches("roofline probe", launches, {"grid_matmul": 1}, 1)
+    rel = probe["f64_max_abs_err"] / probe["scale"]
+    if probe["tc_flops"] != 2 * 2 * 64 * 64 * 64:
+        raise AssertionError(f"grid_matmul counted {probe['tc_flops']} tc "
+                             "FLOPs on card tensors, not 1048576")
+    if not rel <= 1e-5:
+        raise AssertionError(f"grid_matmul: max |d| from f64 "
+                             f"{probe['f64_max_abs_err']} "
+                             f"> 1e-5 x {probe['scale']}")
+    g = torch.Generator(device="cuda").manual_seed(11)
+    a = torch.randn(128, 64, generator=g, device="cuda")
+    b = torch.randn(64, 64, generator=g, device="cuda")
+    with torch.no_grad():
+        err = (probe_cuda.grid_matmul(a, b)
+               - probe_cuda.grid_matmul_plain(a, b)).abs().max().item()
+    ms = cuda_ms(lambda: probe_cuda.grid_matmul(a, b), 200)
+    plain_ms = cuda_ms(lambda: probe_cuda.grid_matmul_plain(a, b), 200)
+    lib_ms = cuda_ms(lambda: torch.matmul(a, b), 200)
+    # device time alone (CUDA graph): the host's call time is most of ms
+    dev = {"kernel": graph_ms(lambda: probe_cuda.grid_matmul(a, b)),
+           "plain": graph_ms(lambda: probe_cuda.grid_matmul_plain(a, b)),
+           "library": graph_ms(lambda: torch.matmul(a, b))}
+    b_ms, b_by, nbytes, flops = counted_bound(
+        "grid_matmul", "[128, 64] @ [64, 64] f32",
+        lambda: probe_cuda.grid_matmul(a, b), (2 * 128 * 64 + 64 * 64) * 4,
+        2 * 128 * 64 * 64, "f32")
+    rec = dict(phase="roofline", part="a", kernel="grid_matmul",
+               shape=[[128, 64], [64, 64]], dtype="f32", grid=[2],
+               count_on_card_tensors=probe["tc_flops"],
+               f64_max_abs_err=probe["f64_max_abs_err"],
+               f64_scale=probe["scale"], f64_rel_err=rel, max_abs_err=err,
+               ms=ms, plain_ms=plain_ms,
+               library_ms=lib_ms, library="torch.matmul (f32, TF32 off)",
+               graph_ms=dev, bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
+               per_forward=1, launches=launches["grid_matmul"],
+               gpu=nvidia_smi_line())
+    emit(rec)
+    if not err <= 1e-5 * probe["scale"]:
+        raise AssertionError(f"grid_matmul vs plain: max |d| {err}")
+
+    # (b) the tool's count beside the hand counts
+    by_kernel = {}
+    for row in COUNT_ROWS:
+        by_kernel.setdefault(row["kernel"], []).append(row)
+    far = lambda r, k: r[k] is not None and abs(r[k] - 1) > 0.1  # noqa
+    for k, rows in by_kernel.items():
+        emit(dict(
+            phase="roofline", part="b", kernel=k, cases=len(rows),
+            used=rows[0]["used"],
+            bytes_ratio=[min(r["bytes_ratio"] for r in rows),
+                         max(r["bytes_ratio"] for r in rows)],
+            flops_ratio=[min(r["flops_ratio"] for r in rows),
+                         max(r["flops_ratio"] for r in rows)],
+            bound_ratio=[min(r["bound_ratio"] for r in rows),
+                         max(r["bound_ratio"] for r in rows)],
+            over_10pct=[{key: r[key] for key in (
+                "case", "tool_bytes", "hand_bytes", "tool_flops",
+                "tool_tc_bf16_flops", "tool_tc_f32_flops",
+                "tool_simt_flops", "hand_flops", "tool_bound_ms",
+                "hand_bound_ms")} for r in rows
+                if far(r, "bytes_ratio") or far(r, "flops_ratio")]))
+    if not COUNT_ROWS:
+        emit(dict(phase="roofline", part="b", note="phases 3, 4 and 7 did "
+                  "not run: no hand count to compare"))
+
+    # (c) the model's speed of light beside phase 5's frame time
+    measured = MEASURED.get("default")
+    for variant in ("base", "lite"):
+        for H, W in ROOFLINE_SIZES:
+            t0 = time.perf_counter()
+            r = roofline.model_roofline(variant, H, W)
+            on_path = variant == "base" and (H, W) == (1088, 1920)
+            emit(dict(phase="roofline", part="c", model=variant,
+                      dtype="bf16", size=[H, W],
+                      count_seconds=time.perf_counter() - t0,
+                      tc_tflop=r["tc_tflop"], tc_bf16_flops=r["tc_bf16_flops"],
+                      tc_f32_flops=r["tc_f32_flops"],
+                      simt_tflop=r["simt_tflop"], hbm_gb_min=r["hbm_gb_min"],
+                      hbm_gb_io=r["hbm_gb_io"], families=r["families"],
+                      wall_tc_ms=r["wall_tc_ms"],
+                      wall_simt_ms=r["wall_simt_ms"],
+                      wall_hbm_ms=r["wall_hbm_ms"], sol_ms=r["sol_ms"],
+                      sol_fps=r["sol_fps"], sol_fps_io=r["sol_fps_io"],
+                      bound=r["bound"],
+                      measured_ms_per_frame=measured if on_path else None,
+                      share_of_sol=(r["sol_ms"] / measured
+                                    if on_path and measured else None)))
+            if on_path and abs(r["tc_tflop"] - 5.9166) > 1e-3:
+                raise AssertionError(f"base 1080p tc {r['tc_tflop']} TFLOP")
+
+    # (d) a device profile of 3 base 1080p frames
+    pipe = InterpolationPipeline(None, "base", torch.bfloat16,
+                                 global_motion=True, device="cuda")
+    x0 = torch.rand(1, 1088, 1920, 3, generator=g, device="cuda")
+    x1 = torch.roll(x0, (3, -5), (1, 2))
+    for _ in range(2):
+        pipe.interpolate_device(x0, x1)
+    torch.cuda.synchronize()
+
+    def frames3():  # host clock of the frames, not of the export
+        t0 = time.perf_counter()
+        for _ in range(3):
+            pipe.interpolate_device(x0, x1)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / 3
+
+    with tempfile.TemporaryDirectory() as trace_dir:
+        wall, _ = profiling.capture(frames3, trace_dir=trace_dir)
+        summ = profiling.summarize(trace_dir, top=8)
+    per = lambda d: {k: v / 3 for k, v in d.items()}  # noqa: E731
+    emit(dict(phase="roofline", part="d", model="base", dtype="bf16",
+              size=[1088, 1920], frames=3, profiled_wall_ms_per_frame=wall,
+              device_busy_ms_per_frame=summ["total_ms"] / 3,
+              idle_share=summ["idle_share"],
+              families_ms=per(summ["by_category_ms"]),
+              stages_ms=per(summ["by_source_ms"]),
+              top_kernels=[[k[:120], v["ms"] / 3, v["calls"] / 3]
+                           for k, v in summ["by_kernel"].items()],
+              gpu=nvidia_smi_line()))
+    if not summ["total_ms"] > 0:
+        raise AssertionError("the profile holds no device time")
+
+    # (e) one interior shard's deep program at 1080p, n = 2 and 4
+    for n in (2, 4):
+        sim = make_deep_shard_sim(pipe.net, 1088, 1920, n)
+        with torch.inference_mode():
+            for _ in range(2):
+                out = sim(x0, x1)
+            torch.cuda.synchronize()
+            times = []
+            for _ in range(SIM_REPEATS):
+                e0 = torch.cuda.Event(enable_timing=True)
+                e1 = torch.cuda.Event(enable_timing=True)
+                e0.record()
+                out = sim(x0, x1)
+                e1.record()
+                torch.cuda.synchronize()
+                times.append(e0.elapsed_time(e1))
+        if (tuple(out.shape) != (1, 1088 // n, 1920, 3)
+                or not bool(torch.isfinite(out).all())):
+            raise AssertionError(f"deep-shard sim n={n}: bad output "
+                                 f"{tuple(out.shape)}")
+        proj = deep_shard_projection(statistics.median(times), 1088, 1920, n,
+                                     pipe.cfg)
+        emit(dict(phase="roofline", part="e", model="base", dtype="bf16",
+                  size=[1088, 1920], shards=n, repeats=SIM_REPEATS,
+                  shard_ms_median=proj["shard_ms"], shard_ms=times,
+                  ici_bytes=proj["ici_bytes"], link_ms=proj["link_ms"],
+                  link="NVLink 4, 450 GB/s each way (H100 SXM data sheet)",
+                  projected_ms=proj["projected_ms"],
+                  projected_fps=proj["projected_fps"],
+                  gpu=nvidia_smi_line()))
+    del pipe, sim, out
+    torch.cuda.empty_cache()
+    return {"grid_matmul": [rec]}, launches["grid_matmul"]
+
+
 def kernel_line(results, launches):
     """One entry per kernel wrapper; times are per launch, averaged over
     the cases of one forward weighted by their launches per forward.
@@ -2989,6 +3332,11 @@ def kernel_line(results, launches):
         "flow_warp_rows": ("row warp of feature maps (K10's single form)",
                            "atmvfi_tpu_torch/csrc/warp.cu",
                            "atmvfi_tpu/ops/warp.py:137"),
+        "grid_matmul": ("row P gridded matmul [128, 64] @ [64, 64], f32, "
+                        "one block per 64-row tile (the counted "
+                        "roofline's kernel check)",
+                        "atmvfi_tpu_torch/csrc/grid_matmul.cu",
+                        "tests/test_roofline.py:56"),
     }
     # K3-K6 sites split by the route they take (K3 / K4: the channel
     # floor; K5 / K6: the sources' layout)
@@ -3155,6 +3503,12 @@ def main() -> int:
         phase_train(torch)
         emit(dict(train="done", gpu=nvidia_smi_line()))
         return 0
+    if sys.argv[1:] == ["--roofline"]:
+        phase_spread_gather(torch)
+        phase_main_path(torch, "default", {}, False, PER_FORWARD, 3)
+        phase_roofline(torch)
+        emit(dict(roofline="done", gpu=nvidia_smi_line()))
+        return 0
     if sys.argv[1:] == ["--stream"]:
         phase_stream(torch)
         emit(dict(stream="done", gpu=nvidia_smi_line()))
@@ -3180,6 +3534,10 @@ def main() -> int:
     phase_stream(torch)
     phase_agreement(torch)
     results.update(phase_row_warps(torch))
+    # after the phases whose counts (b) compares, before the training
+    # phase (its loader threads may still hold the GIL after it)
+    grid, launches["grid_matmul"] = phase_roofline(torch)
+    results.update(grid)
     spatial = [phase_spatial_main_path(torch, n) for n in (2, 4)]
     for k in ("warp_pair_srcfull", "flow_warp_rows"):  # this path's own
         launches[k] = sum(run[k] for run in spatial)
