@@ -43,9 +43,17 @@
 //      as f32 (odd row stride), each warp walking query rows with
 //      scalar FMAs (`attn_kernel`). Windows of more than 160 keys (a
 //      window size above 12) run key-tiled forms of both with an online
-//      softmax (`attn_tiled_kernel`, `mma_attn::attn_mma_tiled_kernel`),
-//      one block per (window, head, query block), so that shared memory
-//      does not grow with the window.
+//      softmax, one block per (window, head, query block), k and v
+//      streamed in 64-key tiles, so that shared memory does not grow
+//      with the window: bf16 `mma_attn::attn_wg_tiled_kernel` (wgmma,
+//      head dims up to 64) and `attn_mma_tiled_kernel` (mma.sync, above
+//      64 and the general form), 128 query rows a block (the general
+//      form 64); f32
+//      `attn_tiled_kernel` (register-tiled on the CUDA cores). They read
+//      the mask as one label a token and rel as one coordinate pair a
+//      key where the wrapper finds them of that form (every mask and rel
+//      the model builds), else stage mask and rel tiles beside k and v
+//      (see "key-tiled forms" below).
 //   3. projection GEMM with bias and the residual in its epilogue (bf16:
 //      lg's GEMM without LayerNorm).
 // A whole global window in bf16 is 144 x 672 x 2 B = 193 KB, more than
@@ -555,9 +563,16 @@ struct AttnArgs {
   View motion;        // (mx, my) at d = 0, 1; ptr null: no motion
   const float* rel;   // [2, N, N]; null: no motion
   const float* mask;  // [mask_windows, N, N], window w reads w % M; or null
+  // The compact forms of mask and rel, read by the key-tiled forms
+  // alone (null: the general form stages mask and rel tiles instead):
+  // labels [mask_windows, N], mask[w, q, k] = MASK_NEG where
+  // labels[w, q] != labels[w, k], else 0; coords [2, N], rel[d, q, k] =
+  // coords[d, k] - coords[d, q].
+  const int* labels;
+  const float* coords;
   int mask_windows, BW, N, hd, swap;  // swap: k, v of window (w + BW/2) % BW
   float scale;
-  int width;  // bf16 kernel: bytes per copied piece (set by launch_attn)
+  int width;  // bytes per copied piece of q, k, v, out (set by launch_attn)
 };
 
 template <typename T>
@@ -659,131 +674,6 @@ attn_kernel(const __grid_constant__ AttnArgs a) {
       if (d < hd) orow[d] = from_f<T>(o[t]);
     }
     __syncwarp();  // Qw / Pw are rewritten by the next query row
-  }
-}
-
-// ---- f32 attention over windows of any size: key tiles, online softmax
-// attn_kernel holds a whole window (k and v, 2 N hd floats) and 5 scores
-// a lane, so it takes N <= 160. Above that this form runs: one block per
-// (window, head, 16 query rows), each warp keeping 4 query rows' state
-// in registers (running max m, sum l, the lane's output channels and
-// its part of the two motion moments) while k and v pass through shared
-// memory 32 keys at a time, one key a lane. At each tile the state is
-// rescaled by exp(m_old - m_new); out and motion are divided by l at
-// the end. Shared memory (43 KB at hd 128) no longer grows with N; k and
-// v are read once per 16 query rows.
-constexpr int TILE_ROWS = 4;                    // query rows a warp keeps
-constexpr int TILE_QB = ATT_WARPS * TILE_ROWS;  // query rows a block
-constexpr int TILE_KEYS = 32;                   // keys a tile: one a lane
-
-template <typename T>
-__global__ void __launch_bounds__(ATT_WARPS * 32)
-attn_tiled_kernel(const __grid_constant__ AttnArgs a) {
-  extern __shared__ float sm[];
-  const int head = blockIdx.x, w = blockIdx.y, q0 = blockIdx.z * TILE_QB;
-  const int N = a.N, hd = a.hd, hdp = hd | 1;
-  float* Qs = sm;                         // [TILE_QB][hdp]
-  float* Ks = Qs + TILE_QB * hdp;         // [TILE_KEYS][hdp]
-  float* Vs = Ks + TILE_KEYS * hdp;       // [TILE_KEYS][hdp]
-  float* Ps = Vs + TILE_KEYS * hdp;       // [TILE_QB][TILE_KEYS]
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int kw = a.swap ? (w + a.BW / 2) % a.BW : w;
-  const int nq = min(TILE_QB, N - q0);
-  for (int e = threadIdx.x; e < nq * hd; e += blockDim.x) {
-    const int r = e / hd, d = e - r * hd;
-    Qs[r * hdp + d] = to_f(at<T>(a.q, w, head, q0 + r)[d]);
-  }
-  const T* kbase = at<T>(a.k, kw, head, 0);
-  const T* vbase = at<T>(a.v, kw, head, 0);
-  const float* mwin =
-      a.mask ? a.mask + (int64_t)(w % a.mask_windows) * N * N : nullptr;
-  float m[TILE_ROWS], l[TILE_ROWS], mxs[TILE_ROWS], mys[TILE_ROWS];
-  float o[TILE_ROWS][MAX_DIMS];
-#pragma unroll
-  for (int r = 0; r < TILE_ROWS; ++r) {
-    m[r] = -INFINITY;
-    l[r] = mxs[r] = mys[r] = 0.f;
-#pragma unroll
-    for (int t = 0; t < MAX_DIMS; ++t) o[r][t] = 0.f;
-  }
-  const int rw = warp * TILE_ROWS;  // this warp's first row in the block
-  for (int k0 = 0; k0 < N; k0 += TILE_KEYS) {
-    const int nk = min(TILE_KEYS, N - k0);
-    __syncthreads();  // the previous tile is consumed (and q is stored)
-    for (int e = threadIdx.x; e < nk * hd; e += blockDim.x) {
-      const int n = e / hd, d = e - n * hd;
-      Ks[n * hdp + d] = to_f(kbase[(int64_t)(k0 + n) * a.k.sn + d]);
-      Vs[n * hdp + d] = to_f(vbase[(int64_t)(k0 + n) * a.v.sn + d]);
-    }
-    __syncthreads();
-    const int k = k0 + lane;
-#pragma unroll
-    for (int r = 0; r < TILE_ROWS; ++r) {
-      const int q = q0 + rw + r;
-      if (q >= N) break;  // warp-uniform
-      float s = -INFINITY;
-      if (lane < nk) {
-        const float* qr = Qs + (rw + r) * hdp;
-        const float* kr = Ks + lane * hdp;
-        float acc = 0.f;
-        for (int d = 0; d < hd; ++d) acc = fmaf(qr[d], kr[d], acc);
-        acc *= a.scale;
-        if (mwin) acc += mwin[(int64_t)q * N + k];
-        s = acc;
-      }
-      const float mn = fmaxf(m[r], warp_max(s));
-      const float mu = mn == -INFINITY ? 0.f : mn;  // a row all -inf so far
-      const float corr = expf(m[r] - mu);
-      const float p = lane < nk ? expf(s - mu) : 0.f;
-      m[r] = mn;
-      l[r] = l[r] * corr + warp_sum(p);
-      if (a.rel) {
-        const float rx = lane < nk ? a.rel[(int64_t)q * N + k] : 0.f;
-        const float ry =
-            lane < nk ? a.rel[(int64_t)N * N + (int64_t)q * N + k] : 0.f;
-        mxs[r] = fmaf(p, rx, mxs[r] * corr);
-        mys[r] = fmaf(p, ry, mys[r] * corr);
-      }
-#pragma unroll
-      for (int t = 0; t < MAX_DIMS; ++t) o[r][t] *= corr;
-      Ps[(rw + r) * TILE_KEYS + lane] = p;
-    }
-    __syncwarp();
-    for (int kk = 0; kk < nk; ++kk) {
-      const float* vr = Vs + kk * hdp;
-      float vv[MAX_DIMS];
-#pragma unroll
-      for (int t = 0; t < MAX_DIMS; ++t) {
-        const int d = lane + 32 * t;
-        vv[t] = d < hd ? vr[d] : 0.f;
-      }
-#pragma unroll
-      for (int r = 0; r < TILE_ROWS; ++r) {
-        const float p = Ps[(rw + r) * TILE_KEYS + kk];
-#pragma unroll
-        for (int t = 0; t < MAX_DIMS; ++t) o[r][t] = fmaf(p, vv[t], o[r][t]);
-      }
-    }
-  }
-#pragma unroll
-  for (int r = 0; r < TILE_ROWS; ++r) {
-    const int q = q0 + rw + r;
-    if (q >= N) break;
-    const float inv = 1.f / l[r];
-    T* orow = at<T>(a.out, w, head, q);
-#pragma unroll
-    for (int t = 0; t < MAX_DIMS; ++t) {
-      const int d = lane + 32 * t;
-      if (d < hd) orow[d] = from_f<T>(o[r][t] * inv);
-    }
-    if (a.rel) {
-      const float sx = warp_sum(mxs[r]), sy = warp_sum(mys[r]);
-      if (lane == 0) {
-        T* mo = at<T>(a.motion, w, head, q);
-        mo[0] = from_f<T>(sx * inv);
-        mo[1] = from_f<T>(sy * inv);
-      }
-    }
   }
 }
 
@@ -919,9 +809,10 @@ __device__ __forceinline__ void store_rows(const bf16* src, int ld,
 
 // Zero channels [hd, dp) of rows [0, n) and every channel of rows
 // [n, rows) of `bufs` buffers of `rows` rows each.
-__device__ __forceinline__ void zero_pad(bf16* buf, int bufs, int rows,
-                                         int n, int hd, int dp, int ld) {
-  const bf16 zero = __float2bfloat16_rn(0.0f);
+template <typename T>
+__device__ __forceinline__ void zero_pad(T* buf, int bufs, int rows, int n,
+                                         int hd, int dp, int ld) {
+  const T zero = from_f<T>(0.0f);
   const int padc = dp - hd, padr = rows - n;
   if (padc)
     for (int e = threadIdx.x; e < bufs * n * padc; e += blockDim.x) {
@@ -1150,103 +1041,391 @@ attn_mma_kernel(const __grid_constant__ AttnArgs a) {
              lane);
 }
 
-// ---- bf16 attention over windows of any size: key tiles, online softmax
-// attn_mma_kernel holds a whole window's q, k and v in shared memory and
-// a warp's 16 x N scores in registers (N <= 160). Above that this form
-// runs: one block of 4 warps per (window, head, 64 query rows); q's
-// fragments stay in registers, k and v pass through a two-stage
-// cp.async ring 64 keys at a time, and each warp keeps for its 16 rows
-// a running max m and sum l (per thread over its own keys; the quad
-// sums them at the end), the output accumulators and the motion
-// moments, rescaled by 2^((m_old - m_new) log2 e) at each tile. The
-// probabilities of a tile, exp(s - m_new) in f32, feed the motion
-// moments and, rounded to bf16, the A fragments of P @ V; out and
-// motion are divided by l at the end (so p is rounded before the
-// division, the one difference from the single-pass form). Mask and rel
-// are read at the warp's own (q, k) positions, tile by tile, as there.
-// Shared memory: 5 x 64 rows of (head dim padded to 16) + 8 bf16.
-constexpr int TQ = 64, TKEYS = 64;  // query rows a block, keys a tile
+// m64n64k16 bf16 -> f32, A and B K-major from shared memory (128-byte
+// swizzle descriptors); d = (accumulate ? d : 0) + A B^T. d[j][e]: n8
+// tile j, e as in mma.sync's accumulator (rows g, g + 8 of the warp).
+__device__ __forceinline__ void wg_qk(float (&d)[8][4], uint64_t a,
+                                      uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
 
-template <int DT>
-__global__ void __launch_bounds__(128)
-attn_mma_tiled_kernel(const __grid_constant__ AttnArgs a) {
+// m64n32k16 bf16 -> f32, A (p) from registers in mma.sync's fragment
+// layout, B (v) N-major from shared memory (transposed, 128-byte swizzle
+// descriptor): d += A B.
+__device__ __forceinline__ void wg_pv32(float (&d)[4][4],
+                                       const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// m64n48k16 bf16 -> f32, A (p) from registers in mma.sync's fragment
+// layout, B (v) N-major from shared memory (transposed, 128-byte swizzle
+// descriptor): d += A B.
+__device__ __forceinline__ void wg_pv48(float (&d)[6][4],
+                                       const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23"
+      "}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// m64n64k16 bf16 -> f32, A (p) from registers in mma.sync's fragment
+// layout, B (v) N-major from shared memory (transposed, 128-byte swizzle
+// descriptor): d += A B.
+__device__ __forceinline__ void wg_pv64(float (&d)[8][4],
+                                       const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// ---- key-tiled forms (windows above 12): shared pieces --------------
+// A block holds TQ query rows of one (window, head) at a time and walks
+// the keys in tiles of TKEYS through a ring of shared-memory stages
+// filled by cp.async, keeping an online softmax (running max m, sum l,
+// the output and motion accumulators, rescaled at each tile).
+//
+// What a block reads besides q, k and v:
+// * compact form (every mask and rel the model builds): the window's N
+//   token labels (a region mask is exactly MASK_NEG where the labels of
+//   q and k differ) and the N key coordinates (rel[d, q, k] = c_d(k) -
+//   c_d(q), so the motion moment is sum_k p c(k) / l - c(q)): 12 bytes
+//   a token instead of 12 bytes a score. The labels come with one flag
+//   a mask window (labels [M, N], then M ints: 1 where they differ); a
+//   window whose labels are all equal (no shift or pad region in it)
+//   skips the mask;
+// * general form (any other mask or rel: the wrapper's exact check
+//   failed): the tile's mask and rel rows [TQ, TKEYS], staged in shared
+//   memory beside its k and v, 16-byte pieces where N % 4 == 0.
+constexpr int TKEYS = 64;
+constexpr float MASK_NEG = -100.0f;  // the region masks' value
+
+// Byte offsets of a key-tiled block's shared memory after its q (and,
+// f32, P) buffers of `head` bytes: a stage is k and v (`kv` bytes) then,
+// in the general form, the mask and rel tiles (`side` bytes each); then
+// the compact form's labels (np + 4 ints: the labels, keys past N, the
+// window's flag) and key coordinates (np float2), np = N rounded up to
+// TKEYS.
+struct TiledSmem {
+  int stage, side_m, side_r, lab, crd, total;
+};
+__host__ __device__ inline TiledSmem tiled_smem(int head, int kv, int side,
+                                                int stages, bool general,
+                                                bool mask, bool rel,
+                                                int N) {
+  TiledSmem s;
+  const int np = (N + TKEYS - 1) / TKEYS * TKEYS;
+  s.side_m = kv;
+  s.side_r = kv + (general && mask ? side : 0);
+  s.stage = s.side_r + (general && rel ? 2 * side : 0);
+  s.lab = head + stages * s.stage;
+  s.crd = s.lab + (!general && mask ? (np + 4) * 4 : 0);
+  s.total = s.crd + (!general && rel ? np * 8 : 0);
+  return s;
+}
+
+// Rows [0, nq) x keys [0, nk) of one f32 [N, N] plane (already offset to
+// the tile's first row and key) into shared rows `ldm` floats apart;
+// keys [nk, TKEYS) are zeroed (p is 0 there, and 0 x stale data may
+// not be).
+__device__ __forceinline__ void load_side(float* dst, int ldm,
+                                          const float* src, int N, int nq,
+                                          int nk) {
+  const int width =
+      N % 4 == 0 && reinterpret_cast<uintptr_t>(src) % 16 == 0 ? 16 : 4;
+  const int per = nk * 4 / width;
+  for (int e = threadIdx.x; e < nq * per; e += blockDim.x) {
+    const int r = e / per, c = (e - r * per) * width;
+    copy_piece(reinterpret_cast<char*>(dst + r * ldm) + c,
+               reinterpret_cast<const char*>(src + (int64_t)r * N) + c,
+               width);
+  }
+  if (nk < TKEYS)
+    for (int e = threadIdx.x; e < nq * (TKEYS - nk); e += blockDim.x) {
+      const int r = e / (TKEYS - nk);
+      dst[r * ldm + nk + e - r * (TKEYS - nk)] = 0.0f;
+    }
+}
+
+// The labels of one window and its flag (labels [M, N], then M flags)
+// into a label buffer, by cp.async.
+__device__ __forceinline__ void load_labels(int* dst, const AttnArgs& a,
+                                            int w, int np) {
+  const int N = a.N, m = w % a.mask_windows;
+  const int* src = a.labels + (int64_t)m * N;
+  const int width =
+      N % 4 == 0 && reinterpret_cast<uintptr_t>(a.labels) % 16 == 0 ? 16 : 4;
+  const int per = width / 4;
+  for (int i = threadIdx.x * per; i < N; i += blockDim.x * per)
+    copy_piece(dst + i, src + i, width);
+  if (threadIdx.x == 0)
+    copy_piece(dst + np, a.labels + (int64_t)a.mask_windows * N + m, 4);
+}
+
+// The key coordinates, interleaved (x, y) a key, keys [N, np) zero.
+__device__ __forceinline__ void load_coords(float2* crd, const AttnArgs& a,
+                                            int np) {
+  for (int i = threadIdx.x; i < np; i += blockDim.x)
+    crd[i] = i < a.N ? make_float2(a.coords[i], a.coords[a.N + i])
+                     : make_float2(0.0f, 0.0f);
+}
+
+// One thread's share of copying rows of `bytes` bytes in `width`-byte
+// pieces, fixed once a kernel: byte c of rows r0, r0 + pass, ... (none
+// when r0 >= pass). Rows of at most blockDim.x pieces.
+struct RowPlan {
+  int r0, c, pass;
+};
+__device__ __forceinline__ RowPlan row_plan(int bytes, int width) {
+  const int per = bytes / width, r0 = (int)threadIdx.x / per;
+  return RowPlan{r0, ((int)threadIdx.x - r0 * per) * width,
+                 (int)blockDim.x / per};
+}
+// Rows [0, n) of src (rows `sn` elements apart) into shared rows `ld`
+// elements apart, by cp.async.
+template <typename T>
+__device__ __forceinline__ void copy_rows(T* dst, int ld, const T* src,
+                                          int64_t sn, int n,
+                                          const RowPlan& p, int width) {
+  if (p.r0 >= p.pass) return;
+  char* d = reinterpret_cast<char*>(dst + p.r0 * ld) + p.c;
+  const char* s = reinterpret_cast<const char*>(src + p.r0 * sn) + p.c;
+  for (int r = p.r0; r < n; r += p.pass, d += p.pass * ld * (int)sizeof(T),
+           s += p.pass * sn * (int64_t)sizeof(T))
+    copy_piece(d, s, width);
+}
+
+// Block `item` of a key-tiled launch: (window, head, first query row),
+// the query blocks of one (window, head) next to each other, so that
+// blocks running at the same time share its k and v in L2.
+struct Item {
+  int w, head, q0;
+};
+__device__ __forceinline__ Item item_of(int item, int heads, int nqb,
+                                        int tq) {
+  const int qb = item % nqb, rest = item / nqb;
+  return Item{rest / heads, rest % heads, qb * tq};
+}
+
+// ---- bf16 attention over windows of any size: key tiles, online softmax
+// Replaces, for N > 160 keys (windows above 12), what attn_mma_kernel
+// does for the main path's windows, i.e. K1's attention launch
+// (`atmvfi_tpu/ops/attention_pallas.py::fused_atm_block`), K7
+// (`fused_window_attention_packed`) and K8 (`fused_window_attention`).
+// Two kernels: attn_wg_tiled_kernel (below; the compact form at head
+// dims up to 64, the model's local and enhancement sites and all lite
+// sites) and this one, on mma.sync (the compact form at head dims 65-128,
+// the base global sites, and the general form). Bound: bytes (local 16
+// at 1080p: 0.25 GB of q, k, v and out, 0.075 ms at 3.35 TB/s). Above
+// it, each of these alone would take 0.04-0.06 ms on an H100: the ex2 of
+// 141.6 M scores on the MUFU, ~7 FP32 issues a score, the products on
+// mma.sync, moving q, k, v and out.
+//
+// The form they replace (the first key-tiled form: 4 warps of 16 rows,
+// a two-stage ring, mask and rel read from L2 as f32 pairs at every
+// score and head) took
+// 1.04 ms at local 16: 0.34 of it the loop itself, 0.37 the mask reads,
+// 0.33 the rel reads (its time with neither, with the mask alone, with
+// both). Both kernels
+// * read the compact mask and rel (see above) from shared memory;
+// * run one block per (window, head, 128 query rows), the query blocks
+//   of a (window, head) next to each other in the grid, so they share k
+//   and v in L2; a 3-stage cp.async ring with one barrier a tile, each
+//   thread's pieces of a row fixed once (`RowPlan`);
+// * take the tile's max on the raw products (scale > 0), then one FFMA
+//   and one ex2.approx a score (scale log2 e folded, the mask added as
+//   MASK_NEG / scale) and quad max reductions; p (f32)
+//   feeds the motion sums and, rounded to bf16, the A fragments of
+//   P @ V straight from the accumulators; out and motion are divided by
+//   l at the end (p is rounded before the division, as in the plain
+//   twin of tests/test_torch_attention_tiled.py).
+// This kernel runs the compact form at head dims 65-128: 4 warps of 32
+// rows at 65-96 (RT = 2: each k and v fragment feeds two row tiles), 8
+// of 16 rows above; and the general form at every head dim, 4 warps of
+// 16 rows and 2 stages (its mask and rel tiles take 55 KB a stage). The
+// wgmma kernel below took over the compact form up to head dim 64
+// because on mma.sync the loop's loads, products and softmax added their
+// times. It repeats this kernel's softmax: one device function shared by
+// both raised their registers into spills.
+template <int DT, bool GENERAL, int RT>
+__global__ void __launch_bounds__(GENERAL || RT == 2 ? 128 : 256, 1)
+attn_mma_tiled_kernel(const __grid_constant__ AttnArgs a, int heads) {
+  constexpr int WARPS = (GENERAL || RT == 2) ? 4 : 8, WR = 16 * RT;
+  constexpr int TQ = WR * WARPS;
+  constexpr int STAGES = GENERAL ? 2 : 3, LDM = 72;  // LDM: side row floats
   extern __shared__ __align__(16) unsigned char smem_attn[];
-  const int head = blockIdx.x, w = blockIdx.y, q0 = blockIdx.z * TQ;
   const int N = a.N, hd = a.hd, dt = (hd + 15) >> 4;
   const int dp = dt * 16, ld = dp + 8;
-  bf16* Qs = reinterpret_cast<bf16*>(smem_attn);  // then K0, V0, K1, V1
-  auto kbuf = [&](int b) { return Qs + (1 + 2 * b) * TQ * ld; };
+  const int tiles = (N + TKEYS - 1) / TKEYS, np = tiles * TKEYS;
+  const Item it = item_of(blockIdx.x, heads, (N + TQ - 1) / TQ, TQ);
+  const int w = it.w, head = it.head, q0 = it.q0;
+  const bool use_mask = GENERAL ? a.mask != nullptr : a.labels != nullptr;
+  const bool use_rel = GENERAL ? a.rel != nullptr : a.coords != nullptr;
+  const TiledSmem L = tiled_smem(TQ * ld * 2, 2 * TKEYS * ld * 2,
+                                 TQ * LDM * 4, STAGES, GENERAL, use_mask,
+                                 use_rel, N);
+  bf16* Qs = reinterpret_cast<bf16*>(smem_attn);
+  auto stage = [&](int t) {
+    return smem_attn + TQ * ld * 2 + (t % STAGES) * L.stage;
+  };
   const int kw = a.swap ? (w + a.BW / 2) % a.BW : w;
-  const int nq = min(TQ, N - q0), tiles = (N + TKEYS - 1) / TKEYS;
-  // a view of rows [row0, ...) of (window, head) of an operand
-  auto rows_of = [](const View& v, int win, int hh, int row0) {
-    View r = v;
-    r.ptr = at<bf16>(v, win, hh, row0);
-    return r;
-  };
+  const int nq = min(TQ, N - q0);
+  const RowPlan plan = row_plan(2 * hd, a.width);
+  const bf16* kbase = at<bf16>(a.k, kw, head, 0);
+  const bf16* vbase = at<bf16>(a.v, kw, head, 0);
+  const float* mplane =
+      GENERAL && a.mask ? a.mask + (int64_t)(w % a.mask_windows) * N * N
+                        : nullptr;
   auto load_tile = [&](int t) {
-    const int n = min(TKEYS, N - t * TKEYS);
-    bf16* kb = kbuf(t & 1);
-    load_rows(kb, ld, rows_of(a.k, kw, head, t * TKEYS), 0, 0, n, 2 * hd,
+    const int k0 = t * TKEYS, n = min(TKEYS, N - k0);
+    bf16* kb = reinterpret_cast<bf16*>(stage(t));
+    copy_rows(kb, ld, kbase + k0 * a.k.sn, a.k.sn, n, plan, a.width);
+    copy_rows(kb + TKEYS * ld, ld, vbase + k0 * a.v.sn, a.v.sn, n, plan,
               a.width);
-    load_rows(kb + TQ * ld, ld, rows_of(a.v, kw, head, t * TKEYS), 0, 0, n,
-              2 * hd, a.width);
     if (n < TKEYS) zero_pad(kb, 2, TKEYS, n, hd, dp, ld);  // rows past N
+    if constexpr (GENERAL) {
+      const int64_t off = (int64_t)q0 * N + k0;
+      if (mplane)
+        load_side(reinterpret_cast<float*>(stage(t) + L.side_m), LDM,
+                  mplane + off, N, nq, n);
+      if (a.rel) {
+        float* r = reinterpret_cast<float*>(stage(t) + L.side_r);
+        load_side(r, LDM, a.rel + off, N, nq, n);
+        load_side(r + TQ * LDM, LDM, a.rel + (int64_t)N * N + off, N, nq, n);
+      }
+    }
   };
-  zero_pad(Qs, 5, TQ, TQ, hd, dp, ld);  // the head-dim padding
-  __syncthreads();  // before any row padding overwrites it
-  load_rows(Qs, ld, rows_of(a.q, w, head, q0), 0, 0, nq, 2 * hd, a.width);
+  // the head-dim padding of q and of every stage's k and v (no copy
+  // writes it); q, the labels, the first tiles; the coordinates
+  zero_pad(Qs, 1, TQ, TQ, hd, dp, ld);
+  for (int t = 0; t < STAGES; ++t)
+    zero_pad(reinterpret_cast<bf16*>(stage(t)), 2, TKEYS, TKEYS, hd, dp, ld);
+  copy_rows(Qs, ld, at<bf16>(a.q, w, head, q0), a.q.sn, nq, plan, a.width);
   if (nq < TQ) zero_pad(Qs, 1, TQ, nq, hd, dp, ld);
-  load_tile(0);
-  cp_async_commit();
+  const int* lab = reinterpret_cast<const int*>(smem_attn + L.lab);
+  if (!GENERAL && use_mask)
+    load_labels(reinterpret_cast<int*>(smem_attn + L.lab), a, w, np);
+  for (int t = 0; t < STAGES - 1; ++t) {  // one cp.async group a tile
+    if (t < tiles) load_tile(t);
+    cp_async_commit();
+  }
+  if (!GENERAL && use_rel)
+    load_coords(reinterpret_cast<float2*>(smem_attn + L.crd), a, np);
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tig = lane & 3, r0 = warp * 16;
+  const int g = lane >> 2, tig = lane & 3, r0 = warp * WR;
+  const bool active = q0 + r0 < N;  // warp-uniform: rows left to compute
   bf16* Qw = Qs + r0 * ld;
-  const int qr[2] = {q0 + r0 + g, q0 + r0 + g + 8};
-  const bool pair = N % 2 == 0;  // (q N + k) even: 8-byte mask / rel pairs
-  const float* mrow[2] = {nullptr, nullptr};
-  const float* rrow[2] = {nullptr, nullptr};
-#pragma unroll
-  for (int h = 0; h < 2; ++h)
-    if (qr[h] < N) {
-      if (a.mask)
-        mrow[h] = a.mask + ((int64_t)(w % a.mask_windows) * N + qr[h]) * N +
-                  tig * 2;
-      if (a.rel) rrow[h] = a.rel + (int64_t)qr[h] * N + tig * 2;
-    }
+  const float4* crd4 = reinterpret_cast<const float4*>(smem_attn + L.crd);
   const float l2e = 1.4426950408889634f;
-  uint32_t qa[DT][4];
-  float o[2 * DT][4];
+  const float sl2 = a.scale * l2e, inv_scale = 1.0f / a.scale;
+  const float neg = MASK_NEG * inv_scale;
+  bool masked = false;
+  // per 16-row tile rt of the warp and half h (rows g, g + 8 of it)
+  int lq[RT][2] = {};
+  float cq[RT][2][2] = {};
+  uint32_t qa[RT][DT][4];
+  float o[RT][2 * DT][4];
 #pragma unroll
-  for (int j = 0; j < 2 * DT; ++j)
+  for (int rt = 0; rt < RT; ++rt)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.0f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
-  float mo[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+    for (int j = 0; j < 2 * DT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[rt][j][e] = 0.0f;
+  // raw units; in the compact form every tile holds a key < N with a
+  // finite score, so m is finite after the first tile, where exp2(-inf)
+  // = 0 starts l (the general form's -inf masks: see mu below)
+  float m[RT][2], l[RT][2], mo[RT][2][2];
+#pragma unroll
+  for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      m[rt][h] = -INFINITY;
+      l[rt][h] = mo[rt][h][0] = mo[rt][h][1] = 0.0f;
+    }
 
   for (int t = 0; t < tiles; ++t) {
-    if (t + 1 < tiles) {  // its buffer was last read in tile t - 1
-      load_tile(t + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    cp_async_wait<STAGES - 2>();  // tile t has landed (this thread's part)
+    __syncthreads();  // all of it; tile t - 1's stage is free again
+    if (t + STAGES - 1 < tiles) load_tile(t + STAGES - 1);
+    cp_async_commit();
+    if (!active) continue;
+    if (t == 0) {  // q, the labels and coordinates have landed too
+      masked = !GENERAL && use_mask && lab[np] != 0;
+#pragma unroll
+      for (int rt = 0; rt < RT; ++rt) {
+#pragma unroll
+        for (int kk = 0; kk < DT; ++kk)
+          if (kk < dt)
+            ldsm_x4(qa[rt][kk], Qw + (16 * rt + (lane & 15)) * ld + kk * 16 +
+                                    (lane >> 4) * 8);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int q = min(q0 + r0 + 16 * rt + g + 8 * h, N - 1);
+          if (masked) lq[rt][h] = lab[q];
+          if (!GENERAL && use_rel) {
+            const float2 c = reinterpret_cast<const float2*>(crd4)[q];
+            cq[rt][h][0] = c.x;
+            cq[rt][h][1] = c.y;
+          }
+        }
+      }
     }
-    __syncthreads();
-    if (t == 0) {
+    const bf16* Ks = reinterpret_cast<const bf16*>(stage(t));
+    const bf16* Vs = Ks + TKEYS * ld;
+    float s[RT][8][4];
 #pragma unroll
-      for (int kk = 0; kk < DT; ++kk)
-        if (kk < dt)
-          ldsm_x4(qa[kk], Qw + (lane & 15) * ld + kk * 16 + (lane >> 4) * 8);
-    }
-    const bf16* Ks = kbuf(t & 1);
-    const bf16* Vs = Ks + TQ * ld;
-    float s[8][4];
+    for (int rt = 0; rt < RT; ++rt)
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.0f;
+        for (int e = 0; e < 4; ++e) s[rt][j][e] = 0.0f;
 #pragma unroll
     for (int kk = 0; kk < DT; ++kk) {
       if (kk >= dt) break;
@@ -1255,79 +1434,120 @@ attn_mma_tiled_kernel(const __grid_constant__ AttnArgs a) {
         uint32_t kb[4];
         ldsm_x4(kb, Ks + (j * 16 + (lane >> 4) * 8 + (lane & 7)) * ld +
                         kk * 16 + ((lane >> 3) & 1) * 8);
-        mma16816(s[2 * j], qa[kk], kb[0], kb[1]);
-        mma16816(s[2 * j + 1], qa[kk], kb[2], kb[3]);
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt) {
+          mma16816(s[rt][2 * j], qa[rt][kk], kb[0], kb[1]);
+          mma16816(s[rt][2 * j + 1], qa[rt][kk], kb[2], kb[3]);
+        }
       }
     }
-    // scale + mask, the tile's row max (keys past N: -inf)
+    // raw products (+ mask / scale); keys past N: -inf; the tile's max
     const int kt0 = t * TKEYS;
-    float mx[2] = {-INFINITY, -INFINITY};
+    const bool ragged = kt0 + TKEYS > N;
+    const float* Ms = reinterpret_cast<const float*>(stage(t) + L.side_m);
+    const float* Rs = reinterpret_cast<const float*>(stage(t) + L.side_r);
+    float mx[RT][2][2];
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) mx[rt][h][0] = mx[rt][h][1] = -INFINITY;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int k = kt0 + j * 8 + tig * 2;
+      const int kl = j * 8 + tig * 2, k = kt0 + kl;
+      int2 lk = make_int2(0, 0);
+      if (masked) lk = *reinterpret_cast<const int2*>(lab + k);
+#pragma unroll
+      for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float v0 = s[rt][j][2 * h], v1 = s[rt][j][2 * h + 1];
+          if constexpr (GENERAL) {
+            if (mplane) {
+              const float2 mk = *reinterpret_cast<const float2*>(
+                  Ms + (r0 + 16 * rt + g + 8 * h) * LDM + kl);
+              v0 = fmaf(mk.x, inv_scale, v0);
+              v1 = fmaf(mk.y, inv_scale, v1);
+            }
+          } else if (masked) {
+            v0 += lk.x != lq[rt][h] ? neg : 0.0f;
+            v1 += lk.y != lq[rt][h] ? neg : 0.0f;
+          }
+          if (ragged) {
+            if (k >= N) v0 = -INFINITY;
+            if (k + 1 >= N) v1 = -INFINITY;
+          }
+          s[rt][j][2 * h] = v0;
+          s[rt][j][2 * h + 1] = v1;
+          mx[rt][h][j & 1] = fmaxf(mx[rt][h][j & 1], fmaxf(v0, v1));
+        }
+    }
+    float mb[RT][2], corr[RT][2];
+#pragma unroll
+    for (int rt = 0; rt < RT; ++rt)
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        float v0 = -INFINITY, v1 = -INFINITY;
-        if (k < N) {
-          float2 mk = make_float2(0.0f, 0.0f);
-          if (mrow[h]) mk = ld2(mrow[h] + kt0 + j * 8, k + 1 < N, pair);
-          v0 = __fadd_rn(__fmul_rn(s[j][2 * h], a.scale), mk.x);
-          if (k + 1 < N)
-            v1 = __fadd_rn(__fmul_rn(s[j][2 * h + 1], a.scale), mk.y);
-        }
-        s[j][2 * h] = v0;
-        s[j][2 * h + 1] = v1;
-        mx[h] = fmaxf(mx[h], fmaxf(v0, v1));
+        float x = fmaxf(mx[rt][h][0], mx[rt][h][1]);
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+        x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+        const float mn = fmaxf(m[rt][h], x);
+        // a general mask may hide every key so far (-inf); 0 then keeps
+        // corr and p at 0 instead of NaN (the compact form cannot: MASK_NEG
+        // is finite and every tile holds a key < N)
+        const float mu = GENERAL && mn == -INFINITY ? 0.0f : mn;
+        corr[rt][h] = ex2((m[rt][h] - mu) * sl2);
+        m[rt][h] = mn;
+        mb[rt][h] = mu * sl2;
+        l[rt][h] *= corr[rt][h];
+        mo[rt][h][0] *= corr[rt][h];
+        mo[rt][h][1] *= corr[rt][h];
       }
-    }
-    float mb[2], corr[2];
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-      const float mn = fmaxf(m[h], mx[h]);
-      const float mu = mn == -INFINITY ? 0.0f : mn;  // a row all -inf so far
-      corr[h] = ex2((m[h] - mu) * l2e);
-      m[h] = mn;
-      mb[h] = mu * l2e;
-      l[h] *= corr[h];
-      mo[h][0] *= corr[h];
-      mo[h][1] *= corr[h];
-    }
+    for (int rt = 0; rt < RT; ++rt)
 #pragma unroll
-    for (int j = 0; j < 2 * DT; ++j) {
-      if (j >= 2 * dt) break;
+      for (int j = 0; j < 2 * DT; ++j) {
+        if (j >= 2 * dt) break;
 #pragma unroll
-      for (int e = 0; e < 4; ++e) o[j][e] *= corr[e >> 1];
-    }
+        for (int e = 0; e < 4; ++e) o[rt][j][e] *= corr[rt][e >> 1];
+      }
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int k = kt0 + j * 8 + tig * 2;
+      const int kl = j * 8 + tig * 2;
+      float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // (x, y) of k, k + 1
+      if (!GENERAL && use_rel) c = crd4[(kt0 + kl) >> 1];
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float p0 = ex2(fmaf(s[j][2 * h], l2e, -mb[h]));
-        const float p1 = ex2(fmaf(s[j][2 * h + 1], l2e, -mb[h]));
-        s[j][2 * h] = p0;
-        s[j][2 * h + 1] = p1;
-        l[h] += p0 + p1;
-        if (rrow[h] && k < N) {
-          const int off = kt0 + j * 8;
-          const float2 rx = ld2(rrow[h] + off, k + 1 < N, pair);
-          const float2 ry =
-              ld2(rrow[h] + (int64_t)N * N + off, k + 1 < N, pair);
-          mo[h][0] = fmaf(p1, rx.y, fmaf(p0, rx.x, mo[h][0]));
-          mo[h][1] = fmaf(p1, ry.y, fmaf(p0, ry.x, mo[h][1]));
+      for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float p0 = ex2(fmaf(s[rt][j][2 * h], sl2, -mb[rt][h]));
+          const float p1 = ex2(fmaf(s[rt][j][2 * h + 1], sl2, -mb[rt][h]));
+          s[rt][j][2 * h] = p0;
+          s[rt][j][2 * h + 1] = p1;
+          l[rt][h] += p0 + p1;
+          if constexpr (GENERAL) {
+            if (use_rel) {
+              const int ro = (r0 + 16 * rt + g + 8 * h) * LDM + kl;
+              const float2 rx = *reinterpret_cast<const float2*>(Rs + ro);
+              const float2 ry =
+                  *reinterpret_cast<const float2*>(Rs + TQ * LDM + ro);
+              mo[rt][h][0] = fmaf(p1, rx.y, fmaf(p0, rx.x, mo[rt][h][0]));
+              mo[rt][h][1] = fmaf(p1, ry.y, fmaf(p0, ry.x, mo[rt][h][1]));
+            }
+          } else if (use_rel) {
+            mo[rt][h][0] = fmaf(p1, c.z, fmaf(p0, c.x, mo[rt][h][0]));
+            mo[rt][h][1] = fmaf(p1, c.w, fmaf(p0, c.y, mo[rt][h][1]));
+          }
         }
-      }
     }
-    uint32_t pa[4][4];
+    uint32_t pa[RT][4][4];
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-    }
+    for (int rt = 0; rt < RT; ++rt)
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        pa[rt][kk][0] = pack_bf16(s[rt][2 * kk][0], s[rt][2 * kk][1]);
+        pa[rt][kk][1] = pack_bf16(s[rt][2 * kk][2], s[rt][2 * kk][3]);
+        pa[rt][kk][2] = pack_bf16(s[rt][2 * kk + 1][0], s[rt][2 * kk + 1][1]);
+        pa[rt][kk][3] = pack_bf16(s[rt][2 * kk + 1][2], s[rt][2 * kk + 1][3]);
+      }
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
@@ -1336,11 +1556,279 @@ attn_mma_tiled_kernel(const __grid_constant__ AttnArgs a) {
         uint32_t vb[4];
         ldsm_x4_t(vb, Vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
                                ld + nt * 16 + (lane >> 4) * 8);
-        mma16816(o[2 * nt], pa[kk], vb[0], vb[1]);
-        mma16816(o[2 * nt + 1], pa[kk], vb[2], vb[3]);
+#pragma unroll
+        for (int rt = 0; rt < RT; ++rt) {
+          mma16816(o[rt][2 * nt], pa[rt][kk], vb[0], vb[1]);
+          mma16816(o[rt][2 * nt + 1], pa[rt][kk], vb[2], vb[3]);
+        }
       }
-    __syncthreads();  // this buffer is refilled at tile t + 2
   }
+  cp_async_wait<0>();  // no copy in flight when the block ends
+  if (!active) return;
+#pragma unroll
+  for (int rt = 0; rt < RT; ++rt) {
+    const int qw = q0 + r0 + 16 * rt;
+    if (qw >= N) break;
+    float inv[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l[rt][h] += __shfl_xor_sync(0xffffffffu, l[rt][h], 1);
+      l[rt][h] += __shfl_xor_sync(0xffffffffu, l[rt][h], 2);
+      inv[h] = 1.0f / l[rt][h];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        mo[rt][h][c] += __shfl_xor_sync(0xffffffffu, mo[rt][h][c], 1);
+        mo[rt][h][c] += __shfl_xor_sync(0xffffffffu, mo[rt][h][c], 2);
+      }
+    }
+    if (use_rel && tig == 0)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (qw + g + 8 * h < N) {
+          bf16* mp = at<bf16>(a.motion, w, head, qw + g + 8 * h);
+          mp[0] = __float2bfloat16_rn(mo[rt][h][0] * inv[h] - cq[rt][h][0]);
+          mp[1] = __float2bfloat16_rn(mo[rt][h][1] * inv[h] - cq[rt][h][1]);
+        }
+    // stage the rounded rows in this row tile's q rows, then write them
+    bf16* Qt = Qw + 16 * rt * ld;
+#pragma unroll
+    for (int j = 0; j < 2 * DT; ++j) {
+      if (j >= 2 * dt) break;
+      const int c = j * 8 + tig * 2;
+      *reinterpret_cast<__nv_bfloat162*>(Qt + g * ld + c) =
+          __floats2bfloat162_rn(o[rt][j][0] * inv[0], o[rt][j][1] * inv[0]);
+      *reinterpret_cast<__nv_bfloat162*>(Qt + (g + 8) * ld + c) =
+          __floats2bfloat162_rn(o[rt][j][2] * inv[1], o[rt][j][3] * inv[1]);
+    }
+    __syncwarp();
+    store_rows(Qt, ld, a.out, w, head, qw, min(16, N - qw), 2 * hd, a.width,
+               lane);
+  }
+}
+
+// Shared memory of a key-tiled launch, set as the kernel's limit above
+// 48 KB; an error where it exceeds the card's 227 KB (very long windows).
+template <typename K>
+cudaError_t tiled_smem_limit(K kernel, int bytes) {
+  if (bytes > 227 * 1024) return cudaErrorInvalidValue;
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              bytes);
+}
+
+template <int DT, bool GENERAL, int RT = 1>
+cudaError_t launch_tiled(const AttnArgs& a, int heads, cudaStream_t st) {
+  constexpr int TQ = GENERAL ? 64 : 128, STAGES = GENERAL ? 2 : 3;
+  constexpr int THREADS = (GENERAL || RT == 2) ? 128 : 256;
+  const int ld = (a.hd + 15) / 16 * 16 + 8;
+  const bool mask = GENERAL ? a.mask != nullptr : a.labels != nullptr;
+  const bool rel = GENERAL ? a.rel != nullptr : a.coords != nullptr;
+  const int smem = tiled_smem(TQ * ld * 2, 2 * TKEYS * ld * 2, TQ * 72 * 4,
+                              STAGES, GENERAL, mask, rel, a.N)
+                       .total;
+  const cudaError_t err =
+      tiled_smem_limit(attn_mma_tiled_kernel<DT, GENERAL, RT>, smem);
+  if (err != cudaSuccess) return err;
+  attn_mma_tiled_kernel<DT, GENERAL, RT>
+      <<<a.BW * heads * ((a.N + TQ - 1) / TQ), THREADS, smem, st>>>(a, heads);
+  return cudaGetLastError();
+}
+
+// ---- bf16, head dims up to 64: the compact form on wgmma --------------
+// attn_mma_tiled_kernel's compact form (see its note) with the products
+// on wgmma: two warpgroups of 64 query rows a block; q and each k / v
+// tile in the 128-byte swizzle (rows of 128 bytes, 16-byte chunks
+// XOR-ed by the row index), written by cp.async, the head dim padded
+// with zeros to 16 DT; q k^T as m64n64k16 with both operands in shared
+// memory, p @ v as m64n(16 DT)k16 with p from registers (the score
+// accumulators rounded to bf16 are its A fragments) and v read N-major
+// (a transposed descriptor). The products leave the instruction stream
+// to the softmax: a warpgroup issues q k^T in DT instructions where a
+// warp issued 12 ldmatrix and 24 mma.sync, and p @ v runs while the
+// next tile's barrier and copies are issued. Rows past N of an active
+// warpgroup are computed on zeros and not stored.
+template <int DT>
+__global__ void __launch_bounds__(256, 2)
+attn_wg_tiled_kernel(const __grid_constant__ AttnArgs a, int heads) {
+  constexpr int TQ = 128, STAGES = 3, TB = TKEYS * 128;  // TB: one tile
+  extern __shared__ __align__(1024) unsigned char smem_wg[];
+  const int N = a.N, hd = a.hd;
+  const int tiles = (N + TKEYS - 1) / TKEYS, np = tiles * TKEYS;
+  const Item it = item_of(blockIdx.x, heads, (N + TQ - 1) / TQ, TQ);
+  const int w = it.w, head = it.head, q0 = it.q0;
+  const bool use_mask = a.labels != nullptr, use_rel = a.coords != nullptr;
+  const TiledSmem L = tiled_smem(TQ * 128, 2 * TB, 0, STAGES, false,
+                                 use_mask, use_rel, N);
+  unsigned char* Qs = smem_wg;
+  auto stage = [&](int t) {
+    return smem_wg + TQ * 128 + (t % STAGES) * 2 * TB;
+  };
+  const int kw = a.swap ? (w + a.BW / 2) % a.BW : w;
+  const int nq = min(TQ, N - q0);
+  const RowPlan plan = row_plan(2 * hd, a.width);
+  // rows [0, n) of src (rows sn elements apart) into a swizzled tile
+  auto copy_sw = [&](unsigned char* dst, const bf16* src, int64_t sn,
+                     int n) {
+    if (plan.r0 >= plan.pass) return;
+    const char* s = reinterpret_cast<const char*>(src + plan.r0 * sn) + plan.c;
+    for (int r = plan.r0; r < n; r += plan.pass, s += plan.pass * sn * 2)
+      copy_piece(dst + r * 128 + ((((plan.c >> 4) ^ (r & 7)) << 4) |
+                                  (plan.c & 15)),
+                 s, a.width);
+  };
+  const bf16* kbase = at<bf16>(a.k, kw, head, 0);
+  const bf16* vbase = at<bf16>(a.v, kw, head, 0);
+  auto load_tile = [&](int t) {
+    const int k0 = t * TKEYS, n = min(TKEYS, N - k0);
+    copy_sw(stage(t), kbase + k0 * a.k.sn, a.k.sn, n);
+    copy_sw(stage(t) + TB, vbase + k0 * a.v.sn, a.v.sn, n);
+    for (int e = threadIdx.x; e < (TKEYS - n) * 8; e += blockDim.x)
+      reinterpret_cast<uint4*>(stage(t) + TB + n * 128)[e] =
+          make_uint4(0, 0, 0, 0);  // v rows past N: p is 0 there
+  };
+  // zeros where no copy writes (channels past the head dim), then q,
+  // the labels, the first tiles, the coordinates
+  for (int e = threadIdx.x; e < (TQ * 128 + STAGES * 2 * TB) / 16;
+       e += blockDim.x)
+    reinterpret_cast<uint4*>(smem_wg)[e] = make_uint4(0, 0, 0, 0);
+  __syncthreads();  // before a copy lands where a zero is stored
+  copy_sw(Qs, at<bf16>(a.q, w, head, q0), a.q.sn, nq);
+  const int* lab = reinterpret_cast<const int*>(smem_wg + L.lab);
+  if (use_mask) load_labels(reinterpret_cast<int*>(smem_wg + L.lab), a, w, np);
+  for (int t = 0; t < STAGES - 1; ++t) {
+    if (t < tiles) load_tile(t);
+    cp_async_commit();
+  }
+  if (use_rel) load_coords(reinterpret_cast<float2*>(smem_wg + L.crd), a, np);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, tig = lane & 3, r0 = warp * 16;
+  const int wg = warp >> 2;
+  const bool active = q0 + wg * 64 < N;  // warpgroup-uniform
+  const float4* crd4 = reinterpret_cast<const float4*>(smem_wg + L.crd);
+  const float l2e = 1.4426950408889634f;
+  const float sl2 = a.scale * l2e, neg = MASK_NEG / a.scale;
+  bool masked = false;
+  int lq[2] = {0, 0};
+  float cq[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+  float o[2 * DT][4];
+#pragma unroll
+  for (int j = 0; j < 2 * DT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+  float mo[2][2] = {{0.0f, 0.0f}, {0.0f, 0.0f}};
+  const uint64_t qdesc = hopper::sw128_desc(Qs + wg * 64 * 128);
+
+  for (int t = 0; t < tiles; ++t) {
+    hopper::wgmma_wait<0>();  // p @ v of tile t - 1 has read its stage
+    cp_async_wait<STAGES - 2>();
+    hopper::fence_proxy_async();  // copies and zeros before wgmma reads
+    __syncthreads();
+    if (t + STAGES - 1 < tiles) load_tile(t + STAGES - 1);
+    cp_async_commit();
+    if (!active) continue;
+    if (t == 0) {
+      masked = use_mask && lab[np] != 0;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = min(q0 + r0 + g + 8 * h, N - 1);
+        if (masked) lq[h] = lab[q];
+        if (use_rel) {
+          const float2 c = reinterpret_cast<const float2*>(crd4)[q];
+          cq[h][0] = c.x;
+          cq[h][1] = c.y;
+        }
+      }
+    }
+    const unsigned char* Ks = stage(t);
+    const uint64_t kdesc = hopper::sw128_desc(Ks);
+    const uint64_t vdesc = hopper::sw128_desc(Ks + TB);
+    float s[8][4];
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < DT; ++ks)
+      wg_qk(s, qdesc + 2 * ks, kdesc + 2 * ks, ks);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<0>();
+    const int kt0 = t * TKEYS;
+    const bool ragged = kt0 + TKEYS > N;
+    float mx[2][2] = {{-INFINITY, -INFINITY}, {-INFINITY, -INFINITY}};
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int kl = j * 8 + tig * 2, k = kt0 + kl;
+      int2 lk = make_int2(0, 0);
+      if (masked) lk = *reinterpret_cast<const int2*>(lab + k);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float v0 = s[j][2 * h], v1 = s[j][2 * h + 1];
+        if (masked) {
+          v0 += lk.x != lq[h] ? neg : 0.0f;
+          v1 += lk.y != lq[h] ? neg : 0.0f;
+        }
+        if (ragged) {
+          if (k >= N) v0 = -INFINITY;
+          if (k + 1 >= N) v1 = -INFINITY;
+        }
+        s[j][2 * h] = v0;
+        s[j][2 * h + 1] = v1;
+        mx[h][j & 1] = fmaxf(mx[h][j & 1], fmaxf(v0, v1));
+      }
+    }
+    float mb[2], corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float x = fmaxf(mx[h][0], mx[h][1]);
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+      x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+      const float mn = fmaxf(m[h], x);
+      corr[h] = ex2((m[h] - mn) * sl2);
+      m[h] = mn;
+      mb[h] = mn * sl2;
+      l[h] *= corr[h];
+      mo[h][0] *= corr[h];
+      mo[h][1] *= corr[h];
+    }
+#pragma unroll
+    for (int j = 0; j < 2 * DT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[j][e] *= corr[e >> 1];
+    uint32_t pa[4][4];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int kl = j * 8 + tig * 2;
+      float4 c = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (use_rel) c = crd4[(kt0 + kl) >> 1];
+      float p[4];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float p0 = ex2(fmaf(s[j][2 * h], sl2, -mb[h]));
+        const float p1 = ex2(fmaf(s[j][2 * h + 1], sl2, -mb[h]));
+        p[2 * h] = p0;
+        p[2 * h + 1] = p1;
+        l[h] += p0 + p1;
+        if (use_rel) {
+          mo[h][0] = fmaf(p1, c.z, fmaf(p0, c.x, mo[h][0]));
+          mo[h][1] = fmaf(p1, c.w, fmaf(p0, c.y, mo[h][1]));
+        }
+      }
+      pa[j >> 1][(j & 1) * 2] = pack_bf16(p[0], p[1]);
+      pa[j >> 1][(j & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+    }
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      if constexpr (DT == 2) wg_pv32(o, pa[kk], vdesc + 128 * kk);
+      else if constexpr (DT == 3) wg_pv48(o, pa[kk], vdesc + 128 * kk);
+      else wg_pv64(o, pa[kk], vdesc + 128 * kk);
+    }
+    hopper::wgmma_commit();
+  }
+  hopper::wgmma_wait<0>();
+  cp_async_wait<0>();
+  const int qw = q0 + r0;
+  if (!active || qw >= N) return;
   float inv[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
@@ -1353,43 +1841,59 @@ attn_mma_tiled_kernel(const __grid_constant__ AttnArgs a) {
       mo[h][c] += __shfl_xor_sync(0xffffffffu, mo[h][c], 2);
     }
   }
-  if (a.rel && tig == 0)
+  if (use_rel && tig == 0)
 #pragma unroll
     for (int h = 0; h < 2; ++h)
-      if (qr[h] < N) {
-        bf16* mp = at<bf16>(a.motion, w, head, qr[h]);
-        mp[0] = __float2bfloat16_rn(mo[h][0] * inv[h]);
-        mp[1] = __float2bfloat16_rn(mo[h][1] * inv[h]);
+      if (qw + g + 8 * h < N) {
+        bf16* mp = at<bf16>(a.motion, w, head, qw + g + 8 * h);
+        mp[0] = __float2bfloat16_rn(mo[h][0] * inv[h] - cq[h][0]);
+        mp[1] = __float2bfloat16_rn(mo[h][1] * inv[h] - cq[h][1]);
       }
-  // stage the rounded rows in this warp's q rows, then write them out
+  // stage the rounded rows, unswizzled, in this warp's own q rows
+  bf16* Qw = reinterpret_cast<bf16*>(Qs + r0 * 128);
 #pragma unroll
   for (int j = 0; j < 2 * DT; ++j) {
-    if (j >= 2 * dt) break;
     const int c = j * 8 + tig * 2;
-    *reinterpret_cast<__nv_bfloat162*>(Qw + g * ld + c) =
+    *reinterpret_cast<__nv_bfloat162*>(Qw + g * 64 + c) =
         __floats2bfloat162_rn(o[j][0] * inv[0], o[j][1] * inv[0]);
-    *reinterpret_cast<__nv_bfloat162*>(Qw + (g + 8) * ld + c) =
+    *reinterpret_cast<__nv_bfloat162*>(Qw + (g + 8) * 64 + c) =
         __floats2bfloat162_rn(o[j][2] * inv[1], o[j][3] * inv[1]);
   }
   __syncwarp();
-  if (r0 < nq)
-    store_rows(Qw, ld, rows_of(a.out, w, head, q0), 0, 0, r0,
-               min(16, nq - r0), 2 * hd, a.width, lane);
+  store_rows(Qw, 64, a.out, w, head, qw, min(16, N - qw), 2 * hd, a.width,
+             lane);
 }
 
 template <int DT>
-cudaError_t launch_tiled(const AttnArgs& a, int heads, cudaStream_t st) {
-  const int ld = (a.hd + 15) / 16 * 16 + 8;
-  const int smem = 5 * TQ * ld * 2;
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        attn_mma_tiled_kernel<DT>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
-  }
-  attn_mma_tiled_kernel<DT>
-      <<<dim3(heads, a.BW, (a.N + TQ - 1) / TQ), 128, smem, st>>>(a);
+cudaError_t launch_tiled_wg(const AttnArgs& a, int heads, cudaStream_t st) {
+  const int smem = tiled_smem(128 * 128, 2 * TKEYS * 128, 0, 3, false,
+                              a.labels != nullptr, a.coords != nullptr, a.N)
+                       .total;
+  const cudaError_t err = tiled_smem_limit(attn_wg_tiled_kernel<DT>, smem);
+  if (err != cudaSuccess) return err;
+  attn_wg_tiled_kernel<DT>
+      <<<a.BW * heads * ((a.N + 127) / 128), 256, smem, st>>>(a, heads);
   return cudaGetLastError();
+}
+
+// The compact form on wgmma up to head dim 64, above it on mma.sync (two
+// 16-row tiles a warp up to 96, see the kernel's note); the general form
+// on mma.sync at every head dim.
+cudaError_t launch_tiled_compact(const AttnArgs& a, int heads,
+                                 cudaStream_t st) {
+  if (a.hd <= 32) return launch_tiled_wg<2>(a, heads, st);
+  if (a.hd <= 48) return launch_tiled_wg<3>(a, heads, st);
+  if (a.hd <= 64) return launch_tiled_wg<4>(a, heads, st);
+  if (a.hd <= 96) return launch_tiled<6, false, 2>(a, heads, st);
+  return launch_tiled<8, false>(a, heads, st);
+}
+
+cudaError_t launch_tiled_general(const AttnArgs& a, int heads,
+                                 cudaStream_t st) {
+  if (a.hd <= 32) return launch_tiled<2, true>(a, heads, st);
+  if (a.hd <= 48) return launch_tiled<3, true>(a, heads, st);
+  if (a.hd <= 96) return launch_tiled<6, true>(a, heads, st);
+  return launch_tiled<8, true>(a, heads, st);
 }
 
 template <int KT, int DT>
@@ -1414,17 +1918,19 @@ cudaError_t launch_dt(const AttnArgs& a, int heads, cudaStream_t st) {
   return launch<KT, 8>(a, heads, st);
 }
 
-// Widest piece (16, 8, 4 or 2 bytes) that every row of q, k, v and out
-// starts on and that divides a head's row.
+// Widest piece (16, 8, 4 or, in bf16, 2 bytes) that every row of q, k,
+// v and out starts on and that divides a head's row.
+template <typename T>
 inline int piece_width(const AttnArgs& a) {
   const View* views[4] = {&a.q, &a.k, &a.v, &a.out};
+  const long long e = sizeof(T);
   int w = 16;
-  for (; w > 2; w /= 2) {
-    bool ok = (2 * a.hd) % w == 0;
+  for (; w > (int)e; w /= 2) {
+    bool ok = (e * a.hd) % w == 0;
     for (const View* v : views)
       ok = ok && reinterpret_cast<uintptr_t>(v->ptr) % w == 0 &&
-           (2 * v->sw) % w == 0 && (2 * v->sh) % w == 0 &&
-           (2 * v->sn) % w == 0;
+           (e * v->sw) % w == 0 && (e * v->sh) % w == 0 &&
+           (e * v->sn) % w == 0;
     if (ok) break;
   }
   return w;
@@ -1432,33 +1938,334 @@ inline int piece_width(const AttnArgs& a) {
 
 }  // namespace mma_attn
 
+// ---- f32 attention over windows of any size: key tiles, online softmax
+// Replaces, for N > 160 keys in f32, what attn_kernel does for the main
+// path's windows (K1's attention launch, K7, K8; see the bf16 form).
+// True f32 on the CUDA cores: the JAX kernels compute f32 at HIGHEST
+// precision, so TF32 products would not be the same function. Bound:
+// operations (local 16 at 1080p: 27 GFLOP of f32 products, 0.41 ms at
+// 67 TFLOP/s, against 0.5 GB of q, k, v and out).
+//
+// The form it replaces (the first key-tiled form: one key a lane, each
+// product reading q and k from shared memory, 2 loads an FMA, 16 query
+// rows a block) took
+// 5.04 ms at local 16 on an H100, slower than the plain version's f32
+// GEMMs (3.09 ms). This one is register-tiled: a block of 256 threads
+// per (window, head, 64 query rows) walks 64-key tiles of k and v (a
+// two-stage cp.async ring; rows 4 (head dim / 4 | 1) floats apart, so
+// that 16-byte reads of 8 neighbouring rows fall in distinct banks).
+// Thread (ty, tx) holds rows ty + 16i and keys tx + 16j (i, j < 4):
+// * scores: per 4 channels, 4 q and 4 k float4 reads feed 64 FMAs;
+// * the softmax in f32 (expf), row max over the 16 lanes of a row, p to
+//   shared memory [64 rows][64 keys];
+// * P @ V: the same rows and channel quads tx + 16c, per 4 keys 4 p and
+//   4 v float4 reads feed 64 FMAs a quad; corr rescales in registers.
+// Mask and rel as in the bf16 form (compact or staged general tiles);
+// the general form keeps one stage. At local 16 it takes 1.45 ms, half
+// its plain version's; at head dim 84 (global) 21 channel quads leave a
+// third of the lanes idle in P @ V (global 24: 1.80 against 2.03 ms).
+template <int DQ, bool GENERAL>
+__global__ void __launch_bounds__(256, DQ == 1 ? 2 : 1)
+attn_tiled_kernel(const __grid_constant__ AttnArgs a, int heads) {
+  using namespace mma_attn;
+  constexpr int TQ = 64, STAGES = GENERAL ? 1 : 2;
+  constexpr int LDP = 80, LDM = 80;  // P / side rows: lanes 16-31 a row on
+  extern __shared__ __align__(16) unsigned char smem_f32[];
+  const int N = a.N, hd = a.hd, hd4 = (hd + 3) >> 2;
+  const Item it = item_of(blockIdx.x, heads, (N + TQ - 1) / TQ, TQ);
+  const int head = it.head, w = it.w, q0 = it.q0;
+  const int ldk = 4 * (hd4 | 1), ldk4 = ldk >> 2;
+  const bool use_mask = GENERAL ? a.mask != nullptr : a.labels != nullptr;
+  const bool use_rel = GENERAL ? a.rel != nullptr : a.coords != nullptr;
+  const TiledSmem L =
+      tiled_smem((TQ * ldk + TQ * LDP) * 4, 2 * TKEYS * ldk * 4,
+                 TQ * LDM * 4, STAGES, GENERAL, use_mask, use_rel, N);
+  float* Qs = reinterpret_cast<float*>(smem_f32);
+  float* Ps = Qs + TQ * ldk;
+  auto stage = [&](int t) {
+    return smem_f32 + (TQ * ldk + TQ * LDP) * 4 + (t % STAGES) * L.stage;
+  };
+  const int kw = a.swap ? (w + a.BW / 2) % a.BW : w;
+  const int nq = min(TQ, N - q0), tiles = (N + TKEYS - 1) / TKEYS;
+  const RowPlan plan = row_plan(4 * hd, a.width);
+  const float* kbase = at<float>(a.k, kw, head, 0);
+  const float* vbase = at<float>(a.v, kw, head, 0);
+  const float* mplane =
+      GENERAL && a.mask ? a.mask + (int64_t)(w % a.mask_windows) * N * N
+                        : nullptr;
+  auto load_tile = [&](int t) {
+    const int k0 = t * TKEYS, n = min(TKEYS, N - k0);
+    float* kb = reinterpret_cast<float*>(stage(t));
+    copy_rows(kb, ldk, kbase + k0 * a.k.sn, a.k.sn, n, plan, a.width);
+    copy_rows(kb + TKEYS * ldk, ldk, vbase + k0 * a.v.sn, a.v.sn, n, plan,
+              a.width);
+    if (n < TKEYS) zero_pad(kb, 2, TKEYS, n, hd, 4 * hd4, ldk);
+    if constexpr (GENERAL) {
+      const int64_t off = (int64_t)q0 * N + k0;
+      if (mplane)
+        load_side(reinterpret_cast<float*>(stage(t) + L.side_m), LDM,
+                  mplane + off, N, nq, n);
+      if (a.rel) {
+        float* r = reinterpret_cast<float*>(stage(t) + L.side_r);
+        load_side(r, LDM, a.rel + off, N, nq, n);
+        load_side(r + TQ * LDM, LDM, a.rel + (int64_t)N * N + off, N, nq, n);
+      }
+    }
+  };
+  if (hd < 4 * hd4) {  // channels [hd, 4 hd4) of q and k are read
+    zero_pad(Qs, 1, TQ, TQ, hd, 4 * hd4, ldk);
+    for (int t = 0; t < STAGES; ++t)
+      zero_pad(reinterpret_cast<float*>(stage(t)), 2, TKEYS, TKEYS, hd,
+               4 * hd4, ldk);
+    __syncthreads();
+  }
+  copy_rows(Qs, ldk, at<float>(a.q, w, head, q0), a.q.sn, nq, plan,
+            a.width);
+  if (nq < TQ) zero_pad(Qs, 1, TQ, nq, hd, 4 * hd4, ldk);
+  if (STAGES > 1) load_tile(0);
+  cp_async_commit();
+  int* lab = reinterpret_cast<int*>(smem_f32 + L.lab);
+  const float2* crd = reinterpret_cast<const float2*>(smem_f32 + L.crd);
+  const bool masked = !GENERAL && use_mask &&
+                      a.labels[(int64_t)a.mask_windows * N +
+                               w % a.mask_windows] != 0;
+  if constexpr (!GENERAL) {
+    if (masked) load_labels(lab, a, w, tiles * TKEYS);
+    cp_async_commit();
+    if (use_rel)
+      load_coords(reinterpret_cast<float2*>(smem_f32 + L.crd), a,
+                  tiles * TKEYS);
+    cp_async_wait<0>();
+    __syncthreads();
+  }
+
+  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  int lq[4] = {0, 0, 0, 0};
+  float cq[4][2] = {};
+  if constexpr (!GENERAL)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int q = min(q0 + ty + 16 * i, N - 1);
+      if (masked) lq[i] = lab[q];
+      if (use_rel) {
+        cq[i][0] = crd[q].x;
+        cq[i][1] = crd[q].y;
+      }
+    }
+  float4 o[4][DQ];
+  float m[4], l[4], mo[4][2];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m[i] = -INFINITY;
+    l[i] = mo[i][0] = mo[i][1] = 0.0f;
+#pragma unroll
+    for (int c = 0; c < DQ; ++c) o[i][c] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  }
+  const float4* Q4 = reinterpret_cast<const float4*>(Qs);
+  const float4* P4 = reinterpret_cast<const float4*>(Ps);
+
+  for (int t = 0; t < tiles; ++t) {
+    if (STAGES == 1) {
+      __syncthreads();  // the previous tile is consumed
+      load_tile(t);
+      cp_async_commit();
+    }
+    cp_async_wait<0>();
+    __syncthreads();  // tile t (and q) has landed; P and tile t - 1 free
+    if (STAGES > 1 && t + 1 < tiles) load_tile(t + 1);
+    cp_async_commit();
+    const float4* K4 = reinterpret_cast<const float4*>(stage(t));
+    const float4* V4 = K4 + TKEYS * ldk4;
+    float s[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) s[i][j] = 0.0f;
+#pragma unroll 2
+    for (int d4 = 0; d4 < hd4; ++d4) {
+      float4 qv[4], kv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = Q4[(ty + 16 * i) * ldk4 + d4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) kv[j] = K4[(tx + 16 * j) * ldk4 + d4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          float acc = fmaf(qv[i].x, kv[j].x, s[i][j]);
+          acc = fmaf(qv[i].y, kv[j].y, acc);
+          acc = fmaf(qv[i].z, kv[j].z, acc);
+          s[i][j] = fmaf(qv[i].w, kv[j].w, acc);
+        }
+    }
+    const int kt0 = t * TKEYS, nk = min(TKEYS, N - kt0);
+    const float* Ms = reinterpret_cast<const float*>(stage(t) + L.side_m);
+    const float* Rs = reinterpret_cast<const float*>(stage(t) + L.side_r);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = ty + 16 * i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kl = tx + 16 * j;
+        float v = s[i][j] * a.scale;
+        if constexpr (GENERAL) {
+          if (mplane) v += Ms[r * LDM + kl];
+        } else if (masked) {
+          v += lab[kt0 + kl] != lq[i] ? MASK_NEG : 0.0f;
+        }
+        if (kl >= nk) v = -INFINITY;
+        s[i][j] = v;
+        mx = fmaxf(mx, v);
+      }
+#pragma unroll
+      for (int o2 = 1; o2 < 16; o2 <<= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o2));
+      const float mn = fmaxf(m[i], mx);
+      // every key so far hidden by a general mask (-inf): 0 keeps corr
+      // and p at 0 instead of NaN
+      const float mu = GENERAL && mn == -INFINITY ? 0.0f : mn;
+      const float corr = expf(m[i] - mu);  // 0 at the first tile
+      m[i] = mn;
+      float ls = 0.0f, mxs = 0.0f, mys = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int kl = tx + 16 * j;
+        const float p = expf(s[i][j] - mu);
+        ls += p;
+        if constexpr (GENERAL) {
+          if (use_rel) {
+            mxs = fmaf(p, Rs[r * LDM + kl], mxs);
+            mys = fmaf(p, Rs[TQ * LDM + r * LDM + kl], mys);
+          }
+        } else if (use_rel) {
+          const float2 c = crd[kt0 + kl];
+          mxs = fmaf(p, c.x, mxs);
+          mys = fmaf(p, c.y, mys);
+        }
+        Ps[r * LDP + kl] = p;
+      }
+      l[i] = fmaf(l[i], corr, ls);
+      mo[i][0] = fmaf(mo[i][0], corr, mxs);
+      mo[i][1] = fmaf(mo[i][1], corr, mys);
+#pragma unroll
+      for (int c = 0; c < DQ; ++c) {
+        o[i][c].x *= corr;
+        o[i][c].y *= corr;
+        o[i][c].z *= corr;
+        o[i][c].w *= corr;
+      }
+    }
+    __syncthreads();  // P of the tile
+    const int nk4 = (nk + 3) >> 2;
+    for (int k4 = 0; k4 < nk4; ++k4) {
+      float4 pv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) pv[i] = P4[(ty + 16 * i) * (LDP / 4) + k4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float4* vr = V4 + (4 * k4 + u) * ldk4;
+#pragma unroll
+        for (int c = 0; c < DQ; ++c) {
+          if (tx + 16 * c >= hd4) break;
+          const float4 vv = vr[tx + 16 * c];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float p = u == 0 ? pv[i].x : u == 1 ? pv[i].y
+                          : u == 2 ? pv[i].z : pv[i].w;
+            o[i][c].x = fmaf(p, vv.x, o[i][c].x);
+            o[i][c].y = fmaf(p, vv.y, o[i][c].y);
+            o[i][c].z = fmaf(p, vv.z, o[i][c].z);
+            o[i][c].w = fmaf(p, vv.w, o[i][c].w);
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int o2 = 1; o2 < 16; o2 <<= 1) {
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], o2);
+      mo[i][0] += __shfl_xor_sync(0xffffffffu, mo[i][0], o2);
+      mo[i][1] += __shfl_xor_sync(0xffffffffu, mo[i][1], o2);
+    }
+    const int q = q0 + ty + 16 * i;
+    if (q >= N) continue;
+    const float inv = 1.0f / l[i];
+    if (use_rel && tx == 0) {
+      float* mp = at<float>(a.motion, w, head, q);
+      mp[0] = mo[i][0] * inv - cq[i][0];
+      mp[1] = mo[i][1] * inv - cq[i][1];
+    }
+    float* orow = at<float>(a.out, w, head, q);
+#pragma unroll
+    for (int c = 0; c < DQ; ++c) {
+      const int d = 4 * (tx + 16 * c);
+      if (d >= hd) break;
+      const float4 v = make_float4(o[i][c].x * inv, o[i][c].y * inv,
+                                   o[i][c].z * inv, o[i][c].w * inv);
+      if (a.width == 16) {
+        *reinterpret_cast<float4*>(orow + d) = v;
+      } else {
+        const float e[4] = {v.x, v.y, v.z, v.w};
+        for (int u = 0; u < 4 && d + u < hd; ++u) orow[d + u] = e[u];
+      }
+    }
+  }
+}
+
+template <int DQ, bool GENERAL>
+cudaError_t launch_tiled_f32(const AttnArgs& a, int heads, cudaStream_t st) {
+  const int ldk = 4 * (((a.hd + 3) >> 2) | 1);
+  const bool mask = GENERAL ? a.mask != nullptr : a.labels != nullptr;
+  const bool rel = GENERAL ? a.rel != nullptr : a.coords != nullptr;
+  const int smem = mma_attn::tiled_smem((64 * ldk + 64 * 80) * 4,
+                                        2 * mma_attn::TKEYS * ldk * 4,
+                                        64 * 80 * 4, GENERAL ? 1 : 2,
+                                        GENERAL, mask, rel, a.N)
+                       .total;
+  const cudaError_t err =
+      mma_attn::tiled_smem_limit(attn_tiled_kernel<DQ, GENERAL>, smem);
+  if (err != cudaSuccess) return err;
+  attn_tiled_kernel<DQ, GENERAL>
+      <<<a.BW * heads * ((a.N + 63) / 64), 256, smem, st>>>(a, heads);
+  return cudaGetLastError();
+}
+
 // The window-attention launch: bf16 on the tensor cores
 // (mma_attn::attn_mma_kernel), f32 as true f32 on the CUDA cores
 // (attn_kernel, the parity mode: JAX computes f32 at HIGHEST precision,
-// so TF32 products would not be the same function).
+// so TF32 products would not be the same function); windows of more
+// than SINGLE_PASS_KEYS keys run the key-tiled forms, compact where
+// every given mask and rel comes with its compact form, else general.
 template <typename T>
 cudaError_t launch_attn(AttnArgs a, int heads, cudaStream_t st) {
   if (a.BW < 1 || a.N < 1 || heads < 1 || a.hd < 1 ||
       a.hd > 32 * MAX_DIMS || (a.swap && a.BW % 2) ||
       (a.mask && (a.mask_windows < 1 || a.BW % a.mask_windows)) ||
-      (a.rel && !a.motion.ptr) || (a.N + TILE_QB - 1) / TILE_QB > 65535)
+      (a.rel && !a.motion.ptr) || (a.labels && !a.mask) ||
+      (a.coords && !a.rel) || (a.N + 63) / 64 > 65535)
     return cudaErrorInvalidValue;
+  a.width = mma_attn::piece_width<T>(a);
+  if (a.N > SINGLE_PASS_KEYS) {
+    const bool general = (a.mask && !a.labels) || (a.rel && !a.coords);
+    if constexpr (sizeof(T) == 2) {
+      return general ? mma_attn::launch_tiled_general(a, heads, st)
+                     : mma_attn::launch_tiled_compact(a, heads, st);
+    } else {
+      if (a.hd <= 64)
+        return general ? launch_tiled_f32<1, true>(a, heads, st)
+                       : launch_tiled_f32<1, false>(a, heads, st);
+      return general ? launch_tiled_f32<2, true>(a, heads, st)
+                     : launch_tiled_f32<2, false>(a, heads, st);
+    }
+  }
   if constexpr (sizeof(T) == 2) {
-    a.width = mma_attn::piece_width(a);
     if (a.N <= 64) return mma_attn::launch_dt<4>(a, heads, st);
     if (a.N <= 144) return mma_attn::launch_dt<9>(a, heads, st);
-    if (a.N <= SINGLE_PASS_KEYS) return mma_attn::launch_dt<10>(a, heads, st);
-    if (a.hd <= 32) return mma_attn::launch_tiled<2>(a, heads, st);
-    if (a.hd <= 48) return mma_attn::launch_tiled<3>(a, heads, st);
-    if (a.hd <= 96) return mma_attn::launch_tiled<6>(a, heads, st);
-    return mma_attn::launch_tiled<8>(a, heads, st);
-  } else if (a.N > SINGLE_PASS_KEYS) {
-    const int hdp = a.hd | 1;
-    const int smem = sizeof(float) * (TILE_QB * hdp + 2 * TILE_KEYS * hdp +
-                                      TILE_QB * TILE_KEYS);
-    attn_tiled_kernel<T><<<dim3(heads, a.BW, (a.N + TILE_QB - 1) / TILE_QB),
-                           ATT_WARPS * 32, smem, st>>>(a);
-    return cudaGetLastError();
+    return mma_attn::launch_dt<10>(a, heads, st);
   } else {
     const int hdp = a.hd | 1;
     const size_t smem = sizeof(float) * (2 * (size_t)a.N * hdp +
@@ -1484,12 +2291,14 @@ cudaError_t launch_gemm_f32(const GemmArgs& g, cudaStream_t st) {
 // only: 0 runs the three launches; 1, 2 or 3 that launch alone (to time
 // them apart, on scratch a whole call has filled). wmaps: bf16 only,
 // 2 x 128 bytes of host memory from atm_block_weight_map, wqkv's map and
-// then wproj's. bf16 takes C <= 1024 (ln_rows_kernel).
+// then wproj's. bf16 takes C <= 1024 (ln_rows_kernel). labels and
+// coords: the compact forms of mask and rel (AttnArgs), or null.
 template <typename T>
 int atm_block(int only, const void* x, const void* wqkv,
               const void* wproj, const void* bproj, const void* wmaps,
               const void* ln_g, const void* ln_b, const void* rel,
-              const void* mask, int mask_windows, void* xn, void* qkv,
+              const void* mask, int mask_windows, const void* labels,
+              const void* coords, void* xn, void* qkv,
               void* app, void* y, void* motion, int BW, int N, int C,
               int heads, int swap, float scale, void* stream) {
   if (BW < 1 || N < 1 || heads < 1 || C % heads ||
@@ -1529,6 +2338,8 @@ int atm_block(int only, const void* x, const void* wqkv,
   a.motion = View{motion, (long long)N * 2 * heads, 2, 2 * heads};
   a.rel = static_cast<const float*>(rel);
   a.mask = static_cast<const float*>(mask);
+  a.labels = static_cast<const int*>(labels);
+  a.coords = static_cast<const float*>(coords);
   a.mask_windows = mask_windows;
   a.BW = BW;
   a.N = N;
@@ -1552,13 +2363,14 @@ int atm_block(int only, const void* x, const void* wqkv,
 }
 
 // K7 / K8: the attention launch alone on caller-given q, k, v. `strides`
-// holds (sw, sh, sn) for q, k, v, out and motion, in that order.
+// holds (sw, sh, sn) for q, k, v, out and motion, in that order; labels
+// and coords as for atm_block.
 template <typename T>
 int window_attention(const void* q, const void* k, const void* v,
                      const int64_t* strides, void* out, void* motion,
                      const void* rel, const void* mask, int mask_windows,
-                     int BW, int N, int hd, int heads, float scale,
-                     void* stream) {
+                     const void* labels, const void* coords, int BW, int N,
+                     int hd, int heads, float scale, void* stream) {
   void* ptrs[5] = {const_cast<void*>(q), const_cast<void*>(k),
                    const_cast<void*>(v), out, motion};
   View views[5];
@@ -1573,6 +2385,8 @@ int window_attention(const void* q, const void* k, const void* v,
   a.motion = views[4];
   a.rel = static_cast<const float*>(rel);
   a.mask = static_cast<const float*>(mask);
+  a.labels = static_cast<const int*>(labels);
+  a.coords = static_cast<const float*>(coords);
   a.mask_windows = mask_windows;
   a.BW = BW;
   a.N = N;
@@ -1609,23 +2423,25 @@ extern "C" int attention_single_pass_keys() { return SINGLE_PASS_KEYS; }
   extern "C" int NAME(const void* x, const void* wqkv, const void* wproj,     \
                       const void* bproj, const void* wmaps,                   \
                       const void* ln_g, const void* ln_b, const void* rel,    \
-                      const void* mask, int mask_windows, void* xn,           \
+                      const void* mask, int mask_windows,                     \
+                      const void* labels, const void* coords, void* xn,       \
                       void* qkv, void* app, void* y, void* motion, int BW,    \
                       int N, int C, int heads, int swap, float scale,         \
                       void* stream) {                                         \
     return atm_block<T>(0, x, wqkv, wproj, bproj, wmaps, ln_g, ln_b, rel,     \
-                        mask, mask_windows, xn, qkv, app, y, motion, BW, N,   \
-                        C, heads, swap, scale, stream);                       \
+                        mask, mask_windows, labels, coords, xn, qkv, app, y,  \
+                        motion, BW, N, C, heads, swap, scale, stream);        \
   }                                                                           \
   extern "C" int LAUNCH_NAME(                                                 \
       int only, const void* x, const void* wqkv, const void* wproj,           \
       const void* bproj, const void* wmaps, const void* ln_g,                 \
       const void* ln_b, const void* rel, const void* mask, int mask_windows,  \
-      void* xn, void* qkv, void* app, void* y, void* motion, int BW, int N,   \
-      int C, int heads, int swap, float scale, void* stream) {                \
+      const void* labels, const void* coords, void* xn, void* qkv,            \
+      void* app, void* y, void* motion, int BW, int N, int C, int heads,      \
+      int swap, float scale, void* stream) {                                  \
     return atm_block<T>(only, x, wqkv, wproj, bproj, wmaps, ln_g, ln_b, rel,  \
-                        mask, mask_windows, xn, qkv, app, y, motion, BW, N,   \
-                        C, heads, swap, scale, stream);                       \
+                        mask, mask_windows, labels, coords, xn, qkv, app, y,  \
+                        motion, BW, N, C, heads, swap, scale, stream);        \
   }
 
 ATM_BLOCK_ENTRY(atm_block_f32, atm_block_launch_f32, float)
@@ -1635,11 +2451,12 @@ ATM_BLOCK_ENTRY(atm_block_bf16, atm_block_launch_bf16, bf16)
   extern "C" int NAME(const void* q, const void* k, const void* v,          \
                       const int64_t* strides, void* out, void* motion,      \
                       const void* rel, const void* mask, int mask_windows,  \
-                      int BW, int N, int hd, int heads, float scale,        \
+                      const void* labels, const void* coords, int BW,       \
+                      int N, int hd, int heads, float scale,                \
                       void* stream) {                                       \
     return window_attention<T>(q, k, v, strides, out, motion, rel, mask,    \
-                               mask_windows, BW, N, hd, heads, scale,       \
-                               stream);                                     \
+                               mask_windows, labels, coords, BW, N, hd,     \
+                               heads, scale, stream);                       \
   }
 
 WINDOW_ATTENTION_ENTRY(window_attention_f32, float)

@@ -96,21 +96,22 @@ def _declare(lib) -> None:
     for dt in ("f32", "bf16"):
         fn = getattr(lib, f"atm_block_{dt}")
         # x, wqkv, wproj, bproj, weight maps (bf16), ln_g, ln_b, rel,
-        # mask, mask_windows, xn, qkv, app, y, motion, BW, N, C, heads,
-        # swap, scale, stream
-        fn.argtypes = [P, P, P, P, P, P, P, P, P, I, P, P, P, P, P,
+        # mask, mask_windows, labels, coords, xn, qkv, app, y, motion,
+        # BW, N, C, heads, swap, scale, stream
+        fn.argtypes = [P, P, P, P, P, P, P, P, P, I, P, P, P, P, P, P, P,
                        I, I, I, I, I, F, P]
         fn.restype = I
         fn = getattr(lib, f"atm_block_launch_{dt}")
         # launch (0 all, or 1, 2, 3 alone), then atm_block's arguments
-        fn.argtypes = [I, P, P, P, P, P, P, P, P, P, I, P, P, P, P, P,
-                       I, I, I, I, I, F, P]
+        fn.argtypes = [I, P, P, P, P, P, P, P, P, P, I, P, P, P, P, P, P,
+                       P, I, I, I, I, I, F, P]
         fn.restype = I
         fn = getattr(lib, f"window_attention_{dt}")
         # q, k, v, (sw, sh, sn) x 5 (q, k, v, out, motion), out, motion,
-        # rel, mask, mask_windows, BW, N, head_dim, heads, scale, stream
+        # rel, mask, mask_windows, labels, coords, BW, N, head_dim, heads,
+        # scale, stream
         fn.argtypes = [P, P, P, ctypes.POINTER(ctypes.c_int64), P, P, P, P,
-                       I, I, I, I, I, F, P]
+                       I, P, P, I, I, I, I, F, P]
         fn.restype = I
         fn = getattr(lib, f"conv3x3_pair_{dt}")
         # source descriptor (int64 x 5), B, H, W, packed weight a, Kp a,

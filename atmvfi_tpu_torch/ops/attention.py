@@ -28,12 +28,20 @@ x [BW, N, C]:
 Weights are in nn.Linear layout [out, in]; `wkv` stacks k over v.
 Returns (y [BW, N, C], motion [BW, N, 2h] as (mx, my) per head, or
 None), both in x.dtype.
+
+The compact forms that the card's key-tiled kernels (windows above 12)
+read instead of mask and rel: `region_labels` (one integer a token per
+mask window, mask = MASK_NEG where two labels differ) and `grid_coords`
+(rel[d, q, k] = c_d(k) - c_d(q)), each checked exactly against the
+tensor it replaces.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+
+from atmvfi_tpu_torch.ops.window import MASK_NEG
 
 
 def layer_norm_f32(x: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
@@ -98,3 +106,23 @@ def atm_block_reference(x, wq, wkv, wproj, bproj, ln_g, ln_b, scale: float,
     out = (app.reshape(-1, C) @ wproj.to(dt).t()).reshape(BW, N, C)
     out = out + bproj.to(dt)
     return (xn + out).to(dt), motion
+
+
+def region_labels(mask: torch.Tensor) -> Optional[torch.Tensor]:
+    """Labels [M, N] int32 with mask[w, q, k] = MASK_NEG where labels[w, q]
+    != labels[w, k] and 0 elsewhere, exactly, for a mask [M, N, N]; None
+    when the mask is not of that form. A token's label is its first
+    unmasked key (the first of its region)."""
+    labels = (mask == 0).to(torch.uint8).argmax(-1).to(torch.int32)
+    same = labels[:, :, None] == labels[:, None, :]
+    made = torch.where(same, 0.0, MASK_NEG).to(mask.dtype)
+    return labels if torch.equal(made, mask) else None
+
+
+def grid_coords(rel: torch.Tensor) -> Optional[torch.Tensor]:
+    """Coordinates c [2, N] f32 with rel[d, q, k] = c[d, k] - c[d, q]
+    exactly, for rel [2, N, N] (c = rel[:, 0]: the first token at 0);
+    None when rel is not such a difference."""
+    c = rel[:, 0].float().contiguous()
+    made = (c[:, None, :] - c[:, :, None]).to(rel.dtype)
+    return c if torch.equal(made, rel) else None

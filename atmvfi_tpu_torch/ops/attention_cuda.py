@@ -19,8 +19,15 @@ shared memory) and f32 as true f32 on the CUDA cores (`attn_kernel`,
 the parity mode). A window of any size is taken: up to the library's
 `attention_single_pass_keys()` keys (160: window 12) the kernels hold
 the whole window; above it key-tiled forms with an online softmax run
-(`<fn>.tiled_launches` counts each wrapper's launches of them). Head
-dims are at most 128. For CPU tensors each wrapper runs its plain version;
+(`<fn>.tiled_launches` counts each wrapper's launches of them). Those
+read the mask and rel in a compact form where one exists: per-window
+token labels (`ops.attention.region_labels`) and key coordinates
+(`grid_coords`), derived and checked exactly once per mask / rel
+tensor (`_compact`, cached with the tensor); any other mask or rel
+runs their general form, which stages mask and rel tiles
+(`<fn>.general_launches` counts those launches, from the operands each
+launch passed).
+Head dims are at most 128. For CPU tensors each wrapper runs its plain version;
 for CUDA tensors it launches the kernel or raises, differentiably through
 the plain version's VJP when grad is on (`ops._autograd`). `<fn>.calls` counts the calls on any
 device, `<fn>.launches` the calls that launched the kernel.
@@ -45,6 +52,8 @@ import torch
 from atmvfi_tpu_torch.ops import _autograd, _build
 from atmvfi_tpu_torch.ops.attention import (
     atm_block_reference,
+    grid_coords,
+    region_labels,
     window_attention as window_attention_plain,
     window_attention_heads as window_attention_heads_plain,
 )
@@ -71,6 +80,48 @@ def _mask_rel(mask, rel, BW: int, N: int, dev):
     if rel_f is not None and tuple(rel_f.shape) != (2, N, N):
         raise ValueError(f"rel must be [2, {N}, {N}], got {tuple(rel_f.shape)}")
     return mask_f, mask_windows, rel_f
+
+
+def _tiled(N: int) -> int:
+    """1 when the attention launch runs its key-tiled form at N keys a
+    window (the library's own threshold), else 0."""
+    return int(N > _build.load_library().attention_single_pass_keys())
+
+
+def _window_labels(mask_f) -> Optional[torch.Tensor]:
+    """The kernels' label buffer of a region mask [M, N, N]: its labels
+    [M, N] (`region_labels`), then M flags, 1 for a mask window whose
+    labels differ (0: no key of it is masked); None for another mask."""
+    labels = region_labels(mask_f)
+    if labels is None:
+        return None
+    mixed = (labels != labels[:, :1]).any(1).to(torch.int32)
+    return torch.cat([labels.reshape(-1), mixed])
+
+
+def _compact(mask_f, rel_f, N: int):
+    """(labels, coords, general): the compact forms of the f32 mask and
+    rel that the key-tiled kernels read, each None where the launch at N
+    keys is single-pass, the tensor is absent or not of that form; and
+    whether the launch runs the general form (key-tiled, and a given mask
+    or rel without its compact form). Derived and checked once per tensor
+    (cached with it, made anew after an in-place update)."""
+    if (mask_f is None and rel_f is None) or not _tiled(N):
+        return None, None, False
+    labels = None if mask_f is None else cached_pack(
+        mask_f, "labels", torch.int32, lambda: _window_labels(mask_f))
+    coords = None if rel_f is None else cached_pack(
+        rel_f, "coords", torch.float32, lambda: grid_coords(rel_f))
+    general = ((mask_f is not None and labels is None)
+               or (rel_f is not None and coords is None))
+    return labels, coords, general
+
+
+def _count_tiled(fn, N: int, general: bool) -> None:
+    """One launch of fn's kernel at N keys a window: key-tiled or not,
+    and general or not (`_compact`)."""
+    fn.tiled_launches += _tiled(N)
+    fn.general_launches += general
 
 
 def _packs(wq, wkv, wproj, bproj, dt):
@@ -138,6 +189,7 @@ def _block_call(x, wq, wkv, wproj, bproj, ln_g, ln_b, scale, rel, mask,
             else None)
     g, b = _f32(ln_g, dev), _f32(ln_b, dev)
     mask_f, mask_windows, rel_f = _mask_rel(mask, rel, BW, N, dev)
+    labels, coords, general = _compact(mask_f, rel_f, N)
     xn = torch.empty_like(x)
     qkv = torch.empty((BW, N, 3 * C), dtype=dt, device=dev)
     app = torch.empty_like(x)
@@ -147,26 +199,22 @@ def _block_call(x, wq, wkv, wproj, bproj, ln_g, ln_b, scale, rel, mask,
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     argv = (x.data_ptr(), wqkv.data_ptr(), wp.data_ptr(), bp.data_ptr(),
             maps, g.data_ptr(), b.data_ptr(), ptr(rel_f), ptr(mask_f),
-            mask_windows, xn.data_ptr(), qkv.data_ptr(), app.data_ptr(),
-            y.data_ptr(), ptr(motion), BW, N, C, h, int(swap_halves),
-            float(scale))
-    keep = (x, wqkv, wp, bp, maps, g, b, rel_f, mask_f)
-    return argv, y, motion, dict(xn=xn, qkv=qkv, app=app, keep=keep)
-
-
-def _tiled(N: int) -> int:
-    """1 when the attention launch runs its key-tiled form at N keys a
-    window (the library's own threshold), else 0."""
-    return int(N > _build.load_library().attention_single_pass_keys())
+            mask_windows, ptr(labels), ptr(coords), xn.data_ptr(),
+            qkv.data_ptr(), app.data_ptr(), y.data_ptr(), ptr(motion), BW,
+            N, C, h, int(swap_halves), float(scale))
+    keep = (x, wqkv, wp, bp, maps, g, b, rel_f, mask_f, labels, coords)
+    return argv, y, motion, dict(xn=xn, qkv=qkv, app=app, keep=keep,
+                                 general=general)
 
 
 def _launch_block(*args):
-    argv, y, motion, _ = _block_call(*args)
+    argv, y, motion, scratch = _block_call(*args)
     x = args[0]
     fn = getattr(_build.load_library(), f"atm_block_{_DTYPES[x.dtype]}")
     with torch.cuda.device(x.device):
         rc = fn(*argv, torch.cuda.current_stream().cuda_stream)
     _build.check(rc, "ATM block kernel launch")
+    _count_tiled(atm_block, x.shape[1], scratch["general"])
     return y, motion
 
 
@@ -206,14 +254,15 @@ def atm_block(x, wq, wkv, wproj, bproj, ln_g, ln_b, scale: float,
                                  wkv, wproj, bproj, ln_g, ln_b, scale, rel,
                                  mask, num_heads, swap_halves)
     atm_block.launches += 1
-    atm_block.tiled_launches += _tiled(x.shape[1])
     return y, motion
 
 
-def _attention_launch(views, out, motion, rel, mask, BW: int, N: int,
-                      hd: int, heads: int, scale: float):
-    """Launch K7's kernel. views: (pointer, (sw, sh, sn)) of q, k, v;
-    out / motion: (tensor, strides), motion's tensor None without rel."""
+def _attention_launch(wrapper, views, out, motion, rel, mask, BW: int,
+                      N: int, hd: int, heads: int, scale: float):
+    """Launch the window-attention kernel for `wrapper` (K7 or K8, whose
+    key-tiled counts it adds to). views: (pointer, (sw, sh, sn)) of q, k,
+    v; out / motion: (tensor, strides), motion's tensor None without
+    rel."""
     q = out[0]
     if q.dtype not in _DTYPES:
         raise TypeError(f"window attention takes f32/bf16, got {q.dtype}")
@@ -222,6 +271,7 @@ def _attention_launch(views, out, motion, rel, mask, BW: int, N: int,
                          f"{MAX_HEAD_DIM})")
     dev = q.device
     mask_f, mask_windows, rel_f = _mask_rel(mask, rel, BW, N, dev)
+    labels, coords, general = _compact(mask_f, rel_f, N)
     if (rel_f is None) != (motion[0] is None):
         raise ValueError("motion is computed exactly when rel is given")
     strides = (ctypes.c_int64 * 15)(*[s for _, st in views for s in st],
@@ -232,8 +282,10 @@ def _attention_launch(views, out, motion, rel, mask, BW: int, N: int,
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(views[0][0], views[1][0], views[2][0], strides,
                 out[0].data_ptr(), ptr(motion[0]), ptr(rel_f), ptr(mask_f),
-                mask_windows, BW, N, hd, heads, float(scale), stream)
+                mask_windows, ptr(labels), ptr(coords), BW, N, hd, heads,
+                float(scale), stream)
     _build.check(rc, "window attention kernel launch")
+    _count_tiled(wrapper, N, general)
 
 
 def _on_card(t: torch.Tensor) -> bool:
@@ -262,7 +314,7 @@ def _launch_packed(q, kv, scale, rel, mask, num_heads):
     out = torch.empty((BW, N, C), dtype=q.dtype, device=q.device)
     motion = (torch.empty((BW, N, 2 * h), dtype=q.dtype, device=q.device)
               if rel is not None else None)
-    _attention_launch(views, (out, (N * C, hd, C)),
+    _attention_launch(window_attention, views, (out, (N * C, hd, C)),
                       (motion, (N * 2 * h, 2, 2 * h)), rel, mask, BW, N, hd,
                       h, scale)
     return out, motion
@@ -279,7 +331,6 @@ def window_attention(q, kv, scale: float, rel: Optional[torch.Tensor],
     out, motion = _autograd.launch(_launch_packed, window_attention_plain, q,
                                    kv, scale, rel, mask, num_heads)
     window_attention.launches += 1
-    window_attention.tiled_launches += _tiled(q.shape[1])
     return out, motion
 
 
@@ -294,7 +345,8 @@ def _launch_heads(q, k, v, scale, rel, mask):
     out = torch.empty_like(q, memory_format=torch.contiguous_format)
     motion = (torch.empty((BW, h, N, 2), dtype=q.dtype, device=q.device)
               if rel is not None else None)
-    _attention_launch(views, (out, (h * N * d, N * d, d)),
+    _attention_launch(window_attention_heads, views,
+                      (out, (h * N * d, N * d, d)),
                       (motion, (h * N * 2, N * 2, 2)), rel, mask, BW, N, d,
                       h, scale)
     return out, motion
@@ -313,7 +365,6 @@ def window_attention_heads(q, k, v, scale: float,
                                    window_attention_heads_plain, q, k, v,
                                    scale, rel, mask)
     window_attention_heads.launches += 1
-    window_attention_heads.tiled_launches += _tiled(q.shape[2])
     return out, motion
 
 
@@ -321,3 +372,4 @@ for _fn in (atm_block, window_attention, window_attention_heads):
     _fn.calls = 0
     _fn.launches = 0
     _fn.tiled_launches = 0
+    _fn.general_launches = 0

@@ -2,7 +2,7 @@
 
     python -m atmvfi_tpu_torch.tools.profile_main_path [--model base|lite]
         [--attention_impl pallas] [--warp_impl tiled_blend] [--fuse_pairs]
-        [--fast] [--spatial_shards N]
+        [--fast] [--spatial_shards N] [--windows LOCAL GLOBAL]
 
 Runs `InterpolationPipeline.interpolate_device` (bf16 towers, global
 motion on, seeded weights, 1088x1920 frames already on the card; the
@@ -16,8 +16,10 @@ trace by `utils.profiling` (`capture`, `summarize`, its `FAMILIES`). With
 --spatial_shards N the forward is the row-sharded schedule with N
 shards on the card (`parallel.make_spatial_forward`), whose stages are
 the shards' front, middle and tail ranges, the gathers and the work
-computed once for all shards (replicated). Needs a CUDA device;
-it does not fall back to the CPU.
+computed once for all shards (replicated). With --windows the
+pipeline runs at `set_window_sizes(LOCAL, GLOBAL)` (windows above 12 take
+the attention kernels' key-tiled forms). Needs a CUDA device; it does
+not fall back to the CPU.
 """
 from __future__ import annotations
 
@@ -40,6 +42,8 @@ def main(argv=None) -> int:
                    help="the serving profile (composed full-res warps)")
     p.add_argument("--spatial_shards", type=int, default=1,
                    help="row-sharded schedule with N shards on the card")
+    p.add_argument("--windows", type=int, nargs=2, metavar=("LOCAL", "GLOBAL"),
+                   help="attention window sizes (default: the model's)")
     args = p.parse_args(argv)
 
     import dataclasses
@@ -63,6 +67,8 @@ def main(argv=None) -> int:
     pipe = InterpolationPipeline(None, cfg, torch.bfloat16,
                                  global_motion=True, device="cuda",
                                  fast=args.fast, mesh=mesh)
+    if args.windows:
+        pipe.set_window_sizes(local=args.windows[0], global_=args.windows[1])
     g = torch.Generator(device="cuda").manual_seed(0)
     H, W, frames = 1088, 1920, 5
     x0 = torch.rand(1, H, W, 3, generator=g, device="cuda")
@@ -90,7 +96,9 @@ def main(argv=None) -> int:
         attention_impl=pipe.cfg.attention_impl, warp_impl=pipe.cfg.warp_impl,
         hcw_fuse_pairs=pipe.cfg.hcw_fuse_pairs,
         compose_full_res_warps=pipe.cfg.compose_full_res_warps,
-        spatial_shards=n, frames=frames, gpu=smi,
+        spatial_shards=n, windows=[pipe.cfg.local_window,
+                                   pipe.cfg.global_window],
+        frames=frames, gpu=smi,
         wall_ms_per_frame=wall * 1e3 / frames,
         device_busy_ms_per_frame=ms(summary["total_ms"]),
         idle_share=summary["idle_share"],

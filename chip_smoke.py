@@ -10,6 +10,7 @@
     python3 chip_smoke.py --windows   # the build and phase 11 alone
     python3 chip_smoke.py --eval   # the build and phase 12 alone
     python3 chip_smoke.py --windows --eval   # both, one build
+    python3 chip_smoke.py --windows-split   # the build and K7's split
     python3 chip_smoke.py --train   # the build and phase 13 alone
     python3 chip_smoke.py --roofline   # the build, K2's spread gather,
                                        # phase 5's default run and phase 14
@@ -115,7 +116,11 @@ Phases, one JSON object per line:
      the single-pass form at the main path's windows (local and
      enhancement 8, global 12) timed beside them; each launch must take
      the form its N calls for (the wrappers' tiled counts: 0 at windows
-     8 and 12, 1 above); the pipeline at set_window_sizes(16, 24): base
+     8 and 12, 1 above), the compact one on every model mask (the
+     wrappers' general counts: 0); the general form (GENERAL_CASES: a
+     random mask with -inf entries and a random rel, head dims 28-128,
+     K1 with swap, K7, K8) and the compact form at head dim 128, f32
+     and bf16, in the same bands; the pipeline at set_window_sizes(16, 24): base
      f32 256x448 card against the CPU port (I_t <= 1e-3); base bf16
      1080p at (8, 12) and (16, 24) in turns, two rounds of 6 timed
      frames each (ms/frame, mean and median; every wrapper's count set
@@ -191,7 +196,9 @@ with --k1-launches only the build and the K1 cases of phase 3; with
 --route-kernels only the build and phase 4; with --gradients only the
 build and phase 10; with --stream only the build and phase 5b; with
 --windows and / or --eval only the build and phases 11 / 12; with
---train only the build and phase 13; with --roofline the build, K2's
+--windows-split only the build and K7's local split (`windows_split`:
+a copy of this script beside an older checkout times the same calls
+there); with --train only the build and phase 13; with --roofline the build, K2's
 spread gather, phase 5's default run and phase 14.
 Any failed phase raises and the script exits non-zero; without a CUDA
 device, or without the repo beside it, it exits non-zero before
@@ -1579,18 +1586,63 @@ def attention_work(BW, N, C, heads, s, mask, motion):
     return nbytes, flops
 
 
+def k7_split_ms(fn, q, kv, scale, mask, heads) -> dict:
+    """The time the mask and the motion add to a K7 call: ms a launch
+    with the mask alone and with neither."""
+    return dict(mask=cuda_ms(lambda: fn(q, kv, scale, None, mask, heads), 10),
+                none=cuda_ms(lambda: fn(q, kv, scale, None, None, heads), 10))
+
+
+def windows_split(torch):
+    """K7 at the base local site, windows 16 and 24 (key-tiled), bf16 and
+    f32: ms a launch with mask and rel, the mask alone and neither
+    (phase 11's `split_ms`), scaled_dot_product_attention's beside. It
+    calls only what the port has had since it took windows above 12, so
+    a copy of this script beside an older checkout measures the same
+    split there."""
+    import torch.nn.functional as F
+
+    from atmvfi_tpu_torch.ops import attention_cuda
+
+    g = torch.Generator(device="cuda").manual_seed(21)
+    fn = attention_cuda.window_attention
+    for ws in (16, 24):
+        for dtype in (torch.bfloat16, torch.float32):
+            q, kv, rel, mask, heads, C, BW, N = attention_operands(
+                torch, g, "local", ws, dtype)
+            qh, kh, vh = (t.reshape(BW, N, heads, C // heads).transpose(1, 2)
+                          .contiguous() for t in (q, kv[..., :C], kv[..., C:]))
+            full = mask.repeat(BW // mask.shape[0], 1, 1)[:, None].to(dtype)
+            scale = (C // heads) ** -0.5
+            with torch.no_grad():
+                emit(dict(phase="windows_split", case="local", window=ws,
+                          dtype="f32" if dtype == torch.float32 else "bf16",
+                          full=cuda_ms(lambda: fn(q, kv, scale, rel, mask,
+                                                  heads), 10),
+                          **k7_split_ms(fn, q, kv, scale, mask, heads),
+                          library_ms=cuda_ms(
+                              lambda: F.scaled_dot_product_attention(
+                                  qh, kh, vh, attn_mask=full, scale=scale),
+                              10),
+                          gpu=nvidia_smi_line()))
+            del q, kv, qh, kh, vh, full
+
+
 def phase_windows(torch):
     """Windows above 12 on the card: K7 (all sites), K8 (base local) and
     K1 (all sites) at windows 13, 16, 24 and 32 against their plain
     versions (f32 max |d| <= 1e-4, bf16 mean <= 5e-3), timed with the
-    plain version, the bound and scaled_dot_product_attention; the
-    single-pass form's bf16 times at the main path's windows beside
-    them; each launch's form checked by the wrappers' tiled counts; the
-    f32 pipeline at set_window_sizes(16, 24) card against the CPU port;
-    the base bf16 1080p path at (8, 12) and (16, 24) in turns
-    (ms/frame, every wrapper's launches set to 0 just before and read
-    just after), bit-equal at (8, 12) after (16, 24). Returns (records,
-    launches of the (16, 24) frames)."""
+    plain version, the bound and scaled_dot_product_attention (K7 at the
+    local site also with the mask alone and with neither mask nor rel:
+    `split_ms`); the single-pass form's bf16 times at the main path's
+    windows beside them; each launch's form checked by the wrappers'
+    tiled counts, and the key-tiled form compact on every model mask
+    (`form`); the general form on a random mask and rel
+    (`windows_general_cases`); the f32 pipeline at set_window_sizes(16,
+    24) card against the CPU port; the base bf16 1080p path at (8, 12)
+    and (16, 24) in turns (ms/frame, every wrapper's launches set to 0
+    just before and read just after), bit-equal at (8, 12) after (16,
+    24). Returns (records, launches of the (16, 24) frames)."""
     import torch.nn.functional as F
 
     from atmvfi_tpu_torch.ops import attention as attn_plain
@@ -1625,9 +1677,11 @@ def phase_windows(torch):
                 timed = not site.startswith("lite")
                 for name, fn, plain, args in kinds:
                     with torch.no_grad():
-                        before = fn.tiled_launches
+                        before = fn.tiled_launches, fn.general_launches
                         (o, m), (orf, mrf) = fn(*args), plain(*args)
-                        tiled = fn.tiled_launches - before
+                        tiled = fn.tiled_launches - before[0]
+                        general = fn.general_launches - before[1]
+                        form = launch_form(tiled, general)
                         torch.cuda.synchronize()
                         do = (o.float() - orf.float()).abs()
                         dm = ((m.float() - mrf.float()).abs()
@@ -1644,7 +1698,7 @@ def phase_windows(torch):
                     b_ms, b_by = bound_ms(nbytes, flops, dt)
                     rec = dict(phase="windows_kernel", kernel=name, case=site,
                                window=ws, dtype=dt, BW=BW, N=N, C=C,
-                               tiled=bool(tiled),
+                               tiled=bool(tiled), form=form,
                                max_abs_err=do.max().item(),
                                mean_abs_err=do.mean().item(),
                                motion_max_abs_err=dm.max().item(),
@@ -1664,6 +1718,10 @@ def phase_windows(torch):
                                 10),
                             library="scaled_dot_product_attention, out only")
                         del full
+                        if name == "K7" and tiled and site == "local":
+                            rec["split_ms"] = dict(
+                                full=rec["ms"], **k7_split_ms(
+                                    fn, q, kv, scale, mask, heads))
                     emit(rec)
                     recs.append(rec)
                     if not err <= lim:
@@ -1674,6 +1732,10 @@ def phase_windows(torch):
                         raise AssertionError(
                             f"{name} {site} window {ws} {dt}: {tiled} "
                             "launches of the key-tiled form")
+                    if general:  # the model's masks: regions
+                        raise AssertionError(
+                            f"{name} {site} window {ws} {dt}: {general} "
+                            "launches of the general form")
                     del o, m, orf, mrf, do, dm
                 del q, kv, qh, kh, vh, kinds
         # K1 (its attention launch is the same kernel) at this window
@@ -1682,19 +1744,133 @@ def phase_windows(torch):
                 recs.append(windows_block_case(torch, g, site, ws, dtype,
                                                tol[dtype]))
         torch.cuda.empty_cache()
+    recs += windows_general_cases(torch, g, tol)
     launches = windows_pipelines(torch)
     return recs, launches
 
 
-def windows_block_case(torch, g, site: str, ws: int, dtype, tol):
+def launch_form(tiled: int, general: int):
+    """The form of one attention launch from its wrapper's counts over
+    it: None (single-pass), "compact" or "general" (key-tiled)."""
+    return None if not tiled else "general" if general else "compact"
+
+
+def general_mask_rel(torch, g, mask, rel):
+    """A random mask and rel of the shapes of `mask` and `rel` that have
+    no compact form: -100 at a fifth of the scores, -inf at a twentieth
+    and over the first 64-key tile of every fourth query row (a tile in
+    which such a row sees no key), rel Gaussian."""
+    u = torch.rand(mask.shape, generator=g, device="cuda")
+    mask = torch.where(u < 0.2, -100.0, 0.0)
+    mask = torch.where(u > 0.95, -torch.inf, mask)
+    mask[:, ::4, :64] = -torch.inf
+    return mask, 4.0 * torch.randn(rel.shape, generator=g, device="cuda")
+
+
+def wide_head_operands(torch, g, dtype):
+    """(q, kv, rel, mask, heads, C, BW, N) of K7 at head dim 128 (2 heads,
+    window 16 shifted by 8 over a 48 x 64 token map, 2 images): the
+    widest head the kernels take."""
+    from atmvfi_tpu_torch import ops
+
+    mask = ops.attn_mask_for(48, 64, 16, 8, "cuda")
+    rel = ops.relative_coords(16, "cuda")
+    BW, N, C = 2 * mask.shape[0], 256, 256
+    qkv = torch.randn(BW, N, 3 * C, generator=g, device="cuda").to(dtype)
+    return qkv[..., :C], qkv[..., C:], rel, mask, 2, C, BW, N
+
+
+# (kernel, site, window, general) of windows_general_cases: the general
+# form at head dims 48 (windows 13 and 16, K7 and K8), 84 (global), 28
+# (lite local) and 128, through K1 with swap; the compact form at 128
+GENERAL_CASES = [("K7", "local", 13, True), ("K7", "local", 16, True),
+                 ("K8", "local", 16, True), ("K7", "global", 24, True),
+                 ("K7", "lite local", 16, True), ("K1", "local", 16, True),
+                 ("K7", "head dim 128", 16, True),
+                 ("K7", "head dim 128", 16, False)]
+
+
+def windows_general_cases(torch, g, tol):
+    """The key-tiled forms' general form (mask and rel tiles staged beside
+    k and v), forced by a random mask that is no region mask, with -inf
+    entries (`general_mask_rel`), and a random rel that is no coordinate
+    difference, and the compact form at head dim 128 (GENERAL_CASES), f32
+    and bf16, each against the plain version on the same inputs, timed;
+    the form each launch took read from its wrapper's counts."""
+    from atmvfi_tpu_torch.ops import attention as attn_plain
+    from atmvfi_tpu_torch.ops import attention_cuda
+
+    recs = []
+    for kernel, site, ws, general_case in GENERAL_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            if kernel == "K1":
+                recs.append(windows_block_case(torch, g, site, ws, dtype,
+                                               tol[dtype], general=True))
+                continue
+            q, kv, rel, mask, heads, C, BW, N = (
+                wide_head_operands(torch, g, dtype) if site == "head dim 128"
+                else attention_operands(torch, g, site, ws, dtype))
+            if general_case:
+                mask, rel = general_mask_rel(torch, g, mask, rel)
+            hd = C // heads
+            scale = hd ** -0.5
+            if kernel == "K7":
+                fn, plain = (attention_cuda.window_attention,
+                             attn_plain.window_attention)
+                args = (q, kv, scale, rel, mask, heads)
+            else:
+                fn, plain = (attention_cuda.window_attention_heads,
+                             attn_plain.window_attention_heads)
+                args = (*(t.reshape(BW, N, heads, hd).transpose(1, 2)
+                          .contiguous() for t in (q, kv[..., :C], kv[..., C:])),
+                        scale, rel, mask)
+            with torch.no_grad():
+                before = fn.tiled_launches, fn.general_launches
+                (o, m), (orf, mrf) = fn(*args), plain(*args)
+                form = launch_form(fn.tiled_launches - before[0],
+                                   fn.general_launches - before[1])
+                torch.cuda.synchronize()
+                do = (o.float() - orf.float()).abs()
+                dm = (m.float() - mrf.float()).abs()
+            stat, lim = tol[dtype]
+            err = (max(do.max().item(), dm.max().item()) if stat == "max"
+                   else max(do.mean().item(), dm.mean().item()))
+            dt = "f32" if dtype == torch.float32 else "bf16"
+            rec = dict(phase="windows_kernel", kernel=kernel,
+                       case=site + (", random mask and rel" if general_case
+                                    else ""),
+                       window=ws, dtype=dt, BW=BW, N=N, C=C, head_dim=hd,
+                       tiled=True, form=form, max_abs_err=do.max().item(),
+                       mean_abs_err=do.mean().item(),
+                       motion_max_abs_err=dm.max().item(),
+                       motion_mean_abs_err=dm.mean().item(),
+                       ms=cuda_ms(lambda: fn(*args), 5))
+            emit(rec)
+            recs.append(rec)
+            if not err <= lim:  # NaN fails too
+                raise AssertionError(f"{kernel} {rec['case']} window {ws} "
+                                     f"{dt}: {stat} |d| {err} > {lim}")
+            want = "general" if general_case else "compact"
+            if form != want:
+                raise AssertionError(f"{kernel} {rec['case']} window {ws} "
+                                     f"{dt}: form {form}, not {want}")
+            del o, m, orf, mrf, do, dm, q, kv, args, mask, rel
+    return recs
+
+
+def windows_block_case(torch, g, site: str, ws: int, dtype, tol,
+                       general: bool = False):
     """K1 at an ATTN_SITES site with window ws (random tokens and
-    weights) against its plain version; bf16 base sites also time the
-    attention launch alone."""
+    weights; with general=True a random mask and rel, `general_mask_rel`)
+    against its plain version; bf16 base sites also time the attention
+    launch alone."""
     from atmvfi_tpu_torch.ops import attention_cuda
     from atmvfi_tpu_torch.ops.attention import atm_block_reference
 
     q, _, rel, mask, heads, C, BW, N = attention_operands(torch, g, site, ws,
                                                           dtype)
+    if general:
+        mask, rel = general_mask_rel(torch, g, mask, rel)
     x = q.contiguous()
     del q, _
     def w(*shape):
@@ -1703,11 +1879,12 @@ def windows_block_case(torch, g, site: str, ws: int, dtype, tol):
     args = (x, w(C, C), w(2 * C, C), w(C, C), w(C) * 0.1,
             1.0 + 0.1 * w(C), 0.1 * w(C), (C // heads) ** -0.5, rel, mask,
             heads, rel is not None)
+    block = attention_cuda.atm_block
     with torch.no_grad():
-        before = attention_cuda.atm_block.tiled_launches
-        (y, m), (yr, mr) = attention_cuda.atm_block(*args), \
-            atm_block_reference(*args)
-        tiled = attention_cuda.atm_block.tiled_launches - before
+        before = block.tiled_launches, block.general_launches
+        (y, m), (yr, mr) = block(*args), atm_block_reference(*args)
+        tiled = block.tiled_launches - before[0]
+        form = launch_form(tiled, block.general_launches - before[1])
         torch.cuda.synchronize()
         dy = (y.float() - yr.float()).abs()
         dm = ((m.float() - mr.float()).abs() if m is not None
@@ -1716,8 +1893,10 @@ def windows_block_case(torch, g, site: str, ws: int, dtype, tol):
     err = (max(dy.max().item(), dm.max().item()) if stat == "max"
            else max(dy.mean().item(), dm.mean().item()))
     dt = "f32" if dtype == torch.float32 else "bf16"
-    rec = dict(phase="windows_kernel", kernel="K1", case=site, window=ws,
-               dtype=dt, BW=BW, N=N, C=C, max_abs_err=dy.max().item(),
+    rec = dict(phase="windows_kernel", kernel="K1",
+               case=site + (", random mask and rel" if general else ""),
+               window=ws, dtype=dt, BW=BW, N=N, C=C, swap=args[-1],
+               form=form, max_abs_err=dy.max().item(),
                mean_abs_err=dy.mean().item(),
                motion_max_abs_err=dm.max().item(),
                motion_mean_abs_err=dm.mean().item())
@@ -1728,11 +1907,13 @@ def windows_block_case(torch, g, site: str, ws: int, dtype, tol):
             rec["attention_launch_ms"] = cuda_ms(lambda: run(2), 10)
     emit(rec)
     if not err <= lim:
-        raise AssertionError(f"K1 {site} window {ws} {dt}: {stat} |d| {err} "
-                             f"> {lim}")
-    if tiled != 1:
-        raise AssertionError(f"K1 {site} window {ws} {dt}: {tiled} launches "
-                             "of the key-tiled form")
+        raise AssertionError(f"K1 {rec['case']} window {ws} {dt}: {stat} "
+                             f"|d| {err} > {lim}")
+    want = "general" if general else "compact"
+    if tiled != 1 or form != want:
+        raise AssertionError(f"K1 {rec['case']} window {ws} {dt}: {tiled} "
+                             f"launches of the key-tiled form, form {form}, "
+                             f"not {want}")
     return rec
 
 
@@ -3310,9 +3491,15 @@ def kernel_line(results, launches):
                                    "atmvfi_tpu/ops/attention_pallas.py:119"),
         "attention_tiled": ("K1 launch 2 / K7 / K8 window attention + "
                             "motion over windows above 12 (N > 160): "
-                            "key-tiled forms with an online softmax "
-                            "(bf16 attn_mma_tiled_kernel on mma.sync, f32 "
-                            "attn_tiled_kernel)",
+                            "key-tiled forms with an online softmax, "
+                            "compact mask (token labels) and rel (key "
+                            "coordinates) from shared memory (bf16: "
+                            "attn_wg_tiled_kernel on wgmma at head dims "
+                            "up to 64, attn_mma_tiled_kernel on mma.sync "
+                            "above and for the general form, 128 rows a "
+                            "block, 3-stage cp.async ring; f32 "
+                            "attn_tiled_kernel: register-tiled 4 x 4 "
+                            "blocks on the CUDA cores)",
                             "atmvfi_tpu_torch/csrc/atm_block.cu",
                             "atmvfi_tpu/ops/attention_pallas.py:233"),
         "flow_warp_blend": ("K9 fused dual warp + occlusion blend",
@@ -3498,6 +3685,9 @@ def main() -> int:
         for flag in sys.argv[1:]:  # one build for both
             (phase_windows if flag == "--windows" else phase_eval)(torch)
             emit({flag[2:]: "done", "gpu": nvidia_smi_line()})
+        return 0
+    if sys.argv[1:] == ["--windows-split"]:
+        windows_split(torch)
         return 0
     if sys.argv[1:] == ["--train"]:
         phase_train(torch)
