@@ -12,8 +12,9 @@ finetune (adds the VGG16 perceptual and style losses, which need
 plus --device (the card by default; `cpu` runs the kernels' plain
 versions). --debug runs --debug_iter steps of each epoch's training and
 validation. Every epoch writes the params `.npz` of the JAX package's
-format to --model_checkpoints. One device: data-parallel training is
-not ported.
+format to --model_checkpoints. With --device cuda and more than one
+card, each batch is split over every card (`train_mesh`, the JAX CLI's
+rule: a mesh whenever there is more than one device).
 """
 from __future__ import annotations
 
@@ -30,6 +31,16 @@ def seed_all(seed: int) -> None:
     random.seed(seed)
     np.random.seed(seed)
     torch.manual_seed(seed)
+
+
+def train_mesh(device: str):
+    """The data-parallel mesh over every card when `device` is "cuda"
+    and there are two or more, else None (one device)."""
+    if device == "cuda" and torch.cuda.device_count() > 1:
+        from atmvfi_tpu_torch.parallel import make_mesh
+
+        return make_mesh()
+    return None
 
 
 def main(argv=None) -> int:
@@ -124,6 +135,7 @@ def main(argv=None) -> int:
             print("WARNING: phase uses perceptual loss but no --vgg_npz; "
                   "perceptual/style terms disabled")
 
+    mesh = train_mesh(args.device)
     trainer = Trainer(
         TrainerConfig(
             phase=phase, variant=args.variant,
@@ -134,10 +146,11 @@ def main(argv=None) -> int:
             resume=args.resume_train,
             checkpoint_dir=args.model_checkpoints,
             seed=args.seed, device=args.device),
-        perceptual_loss=perceptual, init_state_dict=init_state_dict)
+        mesh=mesh, perceptual_loss=perceptual,
+        init_state_dict=init_state_dict)
     n = sum(p.numel() for p in trainer.net.parameters())
     print(f"total parameters: {n / 1e6:.2f} M | phase {phase.name} | "
-          f"device {trainer.device}")
+          f"devices {len(trainer.replicas)} (home {trainer.device})")
 
     max_iters = args.debug_iter if args.debug else None
     trainer.fit(train_loaders, val_loader, max_iters=max_iters)

@@ -28,6 +28,18 @@ def _axis_coeffs(in_size: int, out_size: int):
     return i0, i1, w1
 
 
+@functools.lru_cache(maxsize=128)
+def _device_coeffs(in_size: int, out_size: int, dev: torch.device):
+    """`_axis_coeffs` as tensors on `dev`, copied there once: a copy from
+    host memory waits for the work queued on the card, so one a call
+    would hold the host at every resize (and run the shards of a mesh on
+    distinct cards one after another). Made outside inference mode, so
+    that a training forward may save them for its backward."""
+    with torch.inference_mode(False):
+        return tuple(torch.from_numpy(c).to(dev)
+                     for c in _axis_coeffs(in_size, out_size))
+
+
 def _resize_axis(x: torch.Tensor, axis: int, out_size: int) -> torch.Tensor:
     if not x.is_floating_point():
         raise TypeError(f"resize_bilinear needs float input, got {x.dtype}")
@@ -35,13 +47,12 @@ def _resize_axis(x: torch.Tensor, axis: int, out_size: int) -> torch.Tensor:
     in_size = x.shape[axis]
     if out_size == in_size:
         return x
-    i0, i1, w1 = _axis_coeffs(in_size, out_size)
-    dev = x.device
-    a = torch.index_select(x, axis, torch.from_numpy(i0).to(dev))
-    b = torch.index_select(x, axis, torch.from_numpy(i1).to(dev))
+    i0, i1, w1 = _device_coeffs(in_size, out_size, x.device)
+    a = torch.index_select(x, axis, i0)
+    b = torch.index_select(x, axis, i1)
     wshape = [1] * x.ndim
     wshape[axis] = out_size
-    w = torch.from_numpy(w1).to(dev).reshape(wshape)
+    w = w1.reshape(wshape)
     y = a.float() * (1.0 - w) + b.float() * w
     return y.to(x.dtype)
 

@@ -2,9 +2,11 @@
 (`atmvfi_tpu/train/trainer.py`).
 
 One device (`TrainerConfig.device`, the card unless the caller asks for
-the CPU); the forward runs the network's kernels with gradients through
-their plain versions' VJPs (`ops._autograd`). The optimizer is the JAX
-package's optax chain, step for step:
+the CPU), or a device mesh (`parallel.mesh.make_mesh`) whose 'data'
+axis splits each batch, as the JAX trainer's `mesh` does; the forward
+runs the network's kernels with gradients through their plain
+versions' VJPs (`ops._autograd`). The optimizer is the JAX package's
+optax chain, step for step:
 
 * AdamW(0.9, 0.999, eps 1e-8, the phase's weight decay) with the
   cosine + warmup schedule evaluated at the update count before it
@@ -19,11 +21,31 @@ package's optax chain, step for step:
   mean of k micro-step gradients, one update every k micro-steps, the
   schedule counting updates only.
 
+Data parallelism, in one process: with d 'data' shards, shard i takes
+rows [i B/d, (i + 1) B/d) of the batch (`NamedSharding(mesh,
+P("data"))`'s placement) and runs on its own replica of the network,
+replica 0 being `self.net` on the home device `mesh.devices[0][0]`. A
+device may hold several shards, which then run in turn on it. Each
+shard's forward and backward runs before the next shard's, with no host
+sync between them. Every loss term is a mean over equal-sized samples,
+so the global batch's loss and gradient (what JAX's step computes under
+`jit` on the mesh) are the means of the shards': the shards' gradients
+are summed on the home device and divided by d (the all-reduce), the
+optimizer steps there once, and each replica copies the home weights.
+The pose term is a mean over the batch's crops, not its samples, and
+carries no gradient into the network (its crops are cut on the host):
+it is computed once over the whole batch on the home device. A training
+batch that d does not divide raises, as JAX's `device_put` does; an
+evaluation batch that d does not divide runs on the home replica alone
+(JAX raises there). A 'spatial' extent above 1 raises: the JAX trainer
+replicates the batch over it, so those devices repeat their row's work.
+
 The trainer touches no global setting (TF32, cuDNN benchmark): those
 stay the caller's.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 import time
@@ -34,6 +56,7 @@ import torch
 from atmvfi_tpu_torch import losses, ops
 from atmvfi_tpu_torch.convert import save_npz
 from atmvfi_tpu_torch.models import Network, get_config
+from atmvfi_tpu_torch.parallel.mesh import DATA_AXIS, SPATIAL_AXIS
 from atmvfi_tpu_torch.train.phases import PhaseConfig, trainable_mask
 from atmvfi_tpu_torch.train.schedule import cosine_with_linear_warmup
 from atmvfi_tpu_torch.utils.meters import AverageMeterGroups
@@ -123,30 +146,41 @@ class TrainerConfig:
     clip_grad_norm: Optional[float] = None
     checkpoint_dir: str = "checkpoints"
     seed: int = 0
-    device: str = "cuda"
+    device: str = "cuda"  # without a mesh (a mesh names its own devices)
 
 
 class Trainer:
-    def __init__(self, config: TrainerConfig,
+    def __init__(self, config: TrainerConfig, mesh=None,
                  perceptual_loss: Optional[Callable] = None,
                  pose_loss: Optional[Callable] = None,
                  init_state_dict: Optional[Dict] = None):
+        """`mesh` (a `parallel.mesh.DeviceMesh`) replaces `config.device`:
+        the batch is split over its 'data' axis, and its first device is
+        the home device."""
         self.c = config
         self.phase = config.phase
-        self.device = torch.device(config.device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
+        self.mesh = mesh
+        if mesh is None:
+            devices = [torch.device(config.device)]
+        elif mesh.shape[SPATIAL_AXIS] > 1:
+            raise NotImplementedError(
+                f"mesh {mesh.shape}: a 'spatial' axis above 1 is not "
+                "ported to training (the JAX trainer replicates the batch "
+                "over it, each device repeating its data row's work); use "
+                "a (d, 1) mesh")
+        else:
+            devices = mesh.axis_devices(DATA_AXIS)
+        if (any(d.type == "cuda" for d in devices)
+                and not torch.cuda.is_available()):
             raise RuntimeError("no CUDA device: pass device='cpu' to train "
                                "on the CPU")
+        self.device, self._devices = devices[0], devices
         self.cfg = get_config(config.variant, config.dtype)
         self.net = Network(self.cfg,
                            torch.Generator().manual_seed(config.seed))
         if init_state_dict is not None:
             self.net.load_state_dict(init_state_dict, strict=True)
         self.net.to(self.device)
-        if isinstance(perceptual_loss, torch.nn.Module):
-            perceptual_loss.to(self.device)
-        self.criterion = make_criterion(self.phase, perceptual_loss,
-                                        pose_loss)
 
         epochs = config.num_epochs or self.phase.num_epochs
         t_max = epochs * config.steps_per_epoch // max(config.grad_accum, 1)
@@ -165,6 +199,23 @@ class Trainer:
         for name, p in named.items():
             p.requires_grad_(self.mask[name])
         self.trainable = [p for n, p in named.items() if self.mask[n]]
+        # one replica a shard (the frozen flags copied with it), one
+        # criterion a device (the VGG weights where the shard runs)
+        self.replicas = [self.net] + [copy.deepcopy(self.net).to(d)
+                                      for d in devices[1:]]
+        self._trainables = [self.trainable] + [
+            [p for n, p in r.named_parameters() if self.mask[n]]
+            for r in self.replicas[1:]]
+        criteria = {}
+        for d in devices:
+            if d not in criteria:
+                perc = perceptual_loss
+                if isinstance(perc, torch.nn.Module):
+                    perc = (perc.to(d) if d == self.device
+                            else copy.deepcopy(perc).to(d))
+                criteria[d] = make_criterion(self.phase, perc)
+        self._criteria = [criteria[d] for d in devices]
+        self.pose_loss = pose_loss
         self.optimizer = self._make_optimizer()
         self.step = 0  # micro-steps taken (train steps)
         self.updates = 0  # optimizer updates made: the schedule's count
@@ -216,28 +267,87 @@ class Trainer:
         self.updates += 1
         return True
 
-    def train_step(self, im0, gt, im1) -> Dict[str, torch.Tensor]:
-        """Forward, criterion, backward, optimizer micro-step. Returns
-        the metrics as 0-d tensors on the device (not synchronised)."""
-        im0, gt, im1 = (self._as_device(x) for x in (im0, gt, im1))
-        out = self.net(im0, im1, global_motion=self.phase.global_motion)
-        loss, ld = self.criterion(out, gt)
-        loss.backward()
-        self.apply_gradients()
+    def _run_shards(self, n: int, im0, gt, im1,
+                    train: bool) -> Dict[str, torch.Tensor]:
+        """The first n replicas' forwards (and backwards when training),
+        each on its shard, rows [i B/n, (i + 1) B/n), one after another;
+        the shards' metrics' means on the home device, the pose term over
+        the whole batch."""
+        rows = len(im0) // n
+        shards = [[torch.as_tensor(x)[i * rows:(i + 1) * rows].to(dev)
+                   for x in (im0, gt, im1)]
+                  for i, dev in enumerate(self._devices[:n])]
+        per, preds = [], []
+        for net, crit, (a, g, b) in zip(self.replicas, self._criteria,
+                                        shards):
+            out = net(a, b, global_motion=self.phase.global_motion)
+            loss, ld = crit(out, g)
+            if train:
+                loss.backward()
+            with torch.no_grad():
+                preds.append(out["I_t"].detach())
+                per.append({"loss": torch.as_tensor(loss).detach(),
+                            "psnr": psnr_metric(preds[-1], g),
+                            **{k: torch.as_tensor(v).detach()
+                               for k, v in ld.items()}})
+            del out, loss, ld
+        metrics = per[0] if n == 1 else {
+            k: sum(m[k].to(self.device) for m in per) / n for k in per[0]}
+        if self.phase.use_pose_loss and self.pose_loss is not None:
+            with torch.no_grad():
+                term = self.phase.pose_w * self.pose_loss(
+                    torch.cat([p.to(self.device) for p in preds]),
+                    torch.cat([s[1].to(self.device) for s in shards]))
+            metrics["loss"] = metrics["loss"] + term
+            metrics["pose_loss"] = term
+        return metrics
+
+    def _reduce_gradients(self) -> None:
+        """The all-reduce: the mean of the shards' gradients into the
+        home replica's `.grad`; the other replicas' cleared."""
+        n = len(self.replicas)
+        if n == 1:
+            return
         with torch.no_grad():
-            metrics = {"loss": loss.detach(),
-                       "psnr": psnr_metric(out["I_t"].detach(), gt)}
-            metrics.update({k: torch.as_tensor(v).detach()
-                            for k, v in ld.items()})
+            for home, *others in zip(*self._trainables):
+                if home.grad is None:  # the forward did not reach it
+                    continue
+                for q in others:
+                    home.grad.add_(q.grad.to(self.device))
+                    q.grad = None
+                home.grad.div_(n)
+
+    def _broadcast(self) -> None:
+        """Every replica takes the home replica's trainable weights."""
+        with torch.no_grad():
+            for params in self._trainables[1:]:
+                for q, p in zip(params, self.trainable):
+                    q.copy_(p)
+
+    def train_step(self, im0, gt, im1) -> Dict[str, torch.Tensor]:
+        """Forward, criterion and backward on each shard, the shards'
+        mean gradient, an optimizer micro-step on the home device, the
+        replicas updated. Returns the metrics as 0-d tensors on the home
+        device (not synchronised)."""
+        n = len(self.replicas)
+        if len(im0) % n:
+            raise ValueError(f"batch {len(im0)} must divide over the {n} "
+                             "'data' shards")
+        metrics = self._run_shards(n, im0, gt, im1, train=True)
+        self._reduce_gradients()
+        if self.apply_gradients():
+            self._broadcast()
         return metrics
 
     @torch.no_grad()
     def eval_step(self, im0, gt, im1) -> Dict[str, torch.Tensor]:
-        im0, gt, im1 = (self._as_device(x) for x in (im0, gt, im1))
-        out = self.net(im0, im1, global_motion=self.phase.global_motion)
-        loss, ld = self.criterion(out, gt)
-        return {"loss": torch.as_tensor(loss),
-                "psnr": psnr_metric(out["I_t"], gt), **ld}
+        """Over the shards; a batch they do not divide (a validation
+        loader's batch 1 or its last batch) runs on the home replica
+        alone, where JAX's `device_put` raises: the metrics are
+        per-sample means, so the numbers are the same."""
+        n = len(self.replicas)
+        return self._run_shards(n if len(im0) % n == 0 else 1, im0, gt, im1,
+                                train=False)
 
     # ------------------------------------------------------------------
     def state_dict(self) -> Dict:
@@ -250,12 +360,15 @@ class Trainer:
                 "acc_grads": [a.detach().clone() for a in self._acc]}
 
     def load_state_dict(self, state: Dict) -> None:
-        """Restore in place (`copy_`)."""
+        """Restore in place (`copy_`), the home replica, then the others
+        from it."""
         self.net.load_state_dict(state["model"], strict=True)
         self.optimizer.load_state_dict(state["optimizer"])
         self.updates, self.step = state["updates"], state["step"]
         self.micro_step = state["micro_step"]
         self._acc = [a.to(self.device) for a in state["acc_grads"]]
+        for r in self.replicas[1:]:
+            r.load_state_dict(self.net.state_dict(), strict=True)
 
     # ------------------------------------------------------------------
     def train_epoch(self, loader, max_iters: Optional[int] = None) -> Dict:

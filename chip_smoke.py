@@ -167,9 +167,26 @@ Phases, one JSON object per line:
      gradient (<= 1e-3 x its max |g|); every kernel wrapper's bf16
      gradients against its plain version's (<= 1e-2). Weight packs: the
      bf16 K3 (wgmma) and K1 forwards of a lite layer after a step
-     (foreach and fused AdamW) equal their plain versions on the new
-     weights, and after `restore_train_state` the pre-step outputs, bit
-     for bit.
+     (foreach and fused AdamW; two 'data' shards on the card, each
+     replica's layers) equal their plain versions on the new weights,
+     and after `restore_train_state` the pre-step outputs, bit for bit.
+     Data parallelism (`Trainer(mesh=...)`, base phase 3): (a)
+     `make_mesh((2, 1), ["cuda:0", "cuda:0"])`, batch 16, bf16 and f32:
+     a step against one device from the same weights on the same batch,
+     taken whole and as two micro-steps of the shards' rows (grad_accum
+     2), on 3 batches (metrics and each parameter's first moment,
+     DP_BANDS; every kernel call of the first mesh step against its plain
+     version; launches twice the one-device step's), then 2 warm-up and
+     5 timed steps (launches exactly twice the one-device phase 3 run's
+     per step), every replica bit-equal to the home one, step time and
+     peak memory beside the one-device run's, no synchronising CUDA call
+     from the code the shard loop runs (torch's sync debug mode, one
+     more step); (b) `["cuda:0", "cpu"]`,
+     f32, batch 2, 128x128, against the one-device card trainer (card
+     vs CPU bands; the card shard launches one forward's kernels, the
+     CPU replica copies the card's weights); (c) (a) on `["cuda:0",
+     "cuda:1"]` where two cards are visible, else a line that says it
+     did not run.
  14. roofline (run after phase 7, before phase 8): (a) row P's gridded matmul ([128, 64] @ [64, 64] f32,
      `csrc/grid_matmul.cu`) through `grid_probe`, every count set to
      0 just before and read just after (one launch), against the f64
@@ -3125,13 +3142,16 @@ def phase_train_packs(torch, tree: str):
     learning rate that moves the bf16 weights) equal their plain versions
     on the updated weights (K3 mean |d| <= 1e-3, K1 <= 5e-3) and differ
     from the pre-step output; after `restore_train_state` they equal the
-    pre-step outputs bit for bit."""
+    pre-step outputs bit for bit. The trainer runs two 'data' shards on
+    the card, and each replica's layers are checked: the home one, which
+    the optimizer updates, and the other, which copies its weights."""
     import dataclasses
 
     from atmvfi_tpu_torch import ops
     from atmvfi_tpu_torch.ops import attention as attn_plain
     from atmvfi_tpu_torch.ops import attention_cuda
     from atmvfi_tpu_torch.ops import conv as conv_plain
+    from atmvfi_tpu_torch.parallel import make_mesh
     from atmvfi_tpu_torch.train import PHASE3, Trainer, TrainerConfig
     from atmvfi_tpu_torch.train.checkpoints import (
         restore_train_state,
@@ -3149,58 +3169,323 @@ def phase_train_packs(torch, tree: str):
     im0, im1 = (torch.stack([torch.from_numpy(p[i]) for p in pairs]).float()
                 / 255.0 for i in (0, 1))
     batch = (im0, (0.5 * (im0 + im1)), im1)
+
+    def k3(net):
+        conv = net.feat_extracts[1][1]  # 32 -> 32: K3 on wgmma
+        with torch.no_grad():
+            return conv(x3), conv_plain.conv3x3(
+                [x3], conv[0].weight, conv[0].bias, conv[1].weight, 1)
+
+    def k1(net):
+        blk = net.local_motion_atmformer[0]  # C 224, 8 heads: K1
+        a, n = blk.attn, blk.norm1
+        args = (x1, a.q.weight, a.kv.weight, a.proj.weight, a.proj.bias,
+                n.weight, n.bias, 28 ** -0.5, rel, None, 8, True)
+        with torch.no_grad():
+            return (attention_cuda.atm_block(*args)[0],
+                    attn_plain.atm_block_reference(*args)[0])
+
     for impl in ("foreach", "fused"):
         tr = Trainer(TrainerConfig(phase, variant="lite",
                                    dtype=torch.bfloat16, device="cuda",
-                                   steps_per_epoch=4, seed=33))
+                                   steps_per_epoch=4, seed=33),
+                     mesh=make_mesh((2, 1), ["cuda:0", "cuda:0"]))
         tr.optimizer = torch.optim.AdamW(
             tr.trainable, weight_decay=phase.weight_decay, **{impl: True})
-        conv = tr.net.feat_extracts[1][1]  # 32 -> 32: K3 on wgmma
-        blk = tr.net.local_motion_atmformer[0]  # C 224, 8 heads: K1
-
-        def k3():
-            with torch.no_grad():
-                return conv(x3), conv_plain.conv3x3(
-                    [x3], conv[0].weight, conv[0].bias, conv[1].weight, 1)
-
-        def k1():
-            a, n = blk.attn, blk.norm1
-            args = (x1, a.q.weight, a.kv.weight, a.proj.weight, a.proj.bias,
-                    n.weight, n.bias, 28 ** -0.5, rel, None, 8, True)
-            with torch.no_grad():
-                return (attention_cuda.atm_block(*args)[0],
-                        attn_plain.atm_block_reference(*args)[0])
-
         ckpt = os.path.join(tree, f"state_{impl}")
         save_train_state(ckpt, tr.state_dict(), 0)
-        before = {"K3": k3(), "K1": k1()}
-        before_w = conv[0].weight.detach().clone()
+        before = [{"K3": k3(r), "K1": k1(r)} for r in tr.replicas]
+        before_w = [r.feat_extracts[1][1][0].weight.detach().clone()
+                    for r in tr.replicas]
         tr.train_step(*batch)
-        if torch.equal(before_w, conv[0].weight):
-            raise AssertionError(f"packs {impl}: the step moved no weight")
-        after = {"K3": k3(), "K1": k1()}
+        for i, r in enumerate(tr.replicas):
+            if torch.equal(before_w[i], r.feat_extracts[1][1][0].weight):
+                raise AssertionError(f"packs {impl}: replica {i}: the step "
+                                     "moved no weight")
+        after = [{"K3": k3(r), "K1": k1(r)} for r in tr.replicas]
         restore_train_state(ckpt, 0, tr)
-        restored = {"K3": k3(), "K1": k1()}
-        rec = dict(phase="train_packs", adamw=impl)
-        for k, band in (("K3", 1e-3), ("K1", 5e-3)):
-            (y0, p0), (y1, p1), (y2, p2) = before[k], after[k], restored[k]
-            err = (y1.float() - p1.float()).abs().mean().item()
-            moved = (p1.float() - p0.float()).abs().mean().item()
-            stale = (y1.float() - y0.float()).abs().mean().item()
-            rec[k] = dict(mean_abs_err_after_step=err, band=band,
-                          plain_moved_by=moved, kernel_moved_by=stale,
-                          restored_bit_equal=bool(torch.equal(y2, y0)),
-                          restored_err=(y2.float() - p2.float()).abs()
-                          .mean().item())
-            # a stale pack (the old weights' output) would break the band
-            if not (err <= band and moved > 2 * band and stale > 2 * band
-                    and torch.equal(y2, y0)
-                    and rec[k]["restored_err"] <= band):
-                emit(rec)
-                raise AssertionError(f"packs {impl}: {k}: {rec[k]}")
-        emit(rec)
+        restored = [{"K3": k3(r), "K1": k1(r)} for r in tr.replicas]
+        for i in range(len(tr.replicas)):
+            rec = dict(phase="train_packs", adamw=impl, replica=i,
+                       shards=len(tr.replicas))
+            for k, band in (("K3", 1e-3), ("K1", 5e-3)):
+                (y0, p0), (y1, p1), (y2, p2) = (before[i][k], after[i][k],
+                                                restored[i][k])
+                err = (y1.float() - p1.float()).abs().mean().item()
+                moved = (p1.float() - p0.float()).abs().mean().item()
+                stale = (y1.float() - y0.float()).abs().mean().item()
+                rec[k] = dict(mean_abs_err_after_step=err, band=band,
+                              plain_moved_by=moved, kernel_moved_by=stale,
+                              restored_bit_equal=bool(torch.equal(y2, y0)),
+                              restored_err=(y2.float() - p2.float()).abs()
+                              .mean().item())
+                # a stale pack (the old weights' output) would break the
+                # band
+                if not (err <= band and moved > 2 * band
+                        and stale > 2 * band and torch.equal(y2, y0)
+                        and rec[k]["restored_err"] <= band):
+                    emit(rec)
+                    raise AssertionError(f"packs {impl}: replica {i}: {k}: "
+                                         f"{rec[k]}")
+            emit(rec)
         del tr
         torch.cuda.empty_cache()
+
+
+# bands of a data-parallel step against one device from the same
+# weights: the metrics (relative), and each trainable parameter's first
+# moment after the step (0.1 x the reduced gradient) over its max |.|,
+# the worst tensor's and the median. Two references. "accum": one device
+# taking the batch as two micro-steps of the shards' rows (grad_accum 2:
+# the same per-sample forwards, the mean of the two gradients), which
+# only the card's atomics and the order of the sums set apart. "full":
+# one device taking the whole batch at once. The card's libraries pick
+# other algorithms for 16 samples than for 8, and the warps' cell
+# crossings and the L1 terms' signs amplify those last-bit differences
+# in a few tensors; in bf16 each shard's weight gradient is moreover a
+# bf16 product, rounded before the two meet (as the partial sums of
+# JAX's partitioned product are before its all-reduce) where one device
+# rounds the whole sum once. Measured on an H100 80GB HBM3 at 700 W over
+# 18 loader batches: f32 accum worst <= 2.1e-6, full worst 5.6e-5 to
+# 4.4e-4 with medians <= 6.6e-7; bf16 accum worst 5.0e-3 to 1.06e-2
+# (medians <= 6.3e-4; one device against itself: worst 6.8e-3), full
+# worst up to 6.3e-2 with medians 2.5e-3 to 3.5e-3 (2^-8), and the
+# metrics up to 4.2e-6 apart (f32 1.3e-7). So the worst tensor against
+# the whole batch is printed and its median gated, and the metrics are
+# held to 1e-5 against the micro-steps' mean. A card shard beside a CPU
+# shard: the card-vs-CPU band of the agreement.
+DP_BANDS = {
+    "bfloat16": dict(accum_metric=1e-5, metric=1e-4, accum=5e-2,
+                     accum_median=2e-3, full_median=1e-2),
+    "float32": dict(accum_metric=1e-5, metric=1e-5, accum=1e-4,
+                    full_median=1e-5),
+    "cuda+cpu": dict(metric=1e-4, full=1e-3)}
+
+
+DP_BATCHES = 3  # batches of (a)'s comparison, each from the same weights
+
+# the port's code that runs inside the trainer's shard loop
+FORWARD_CODE = tuple(f"atmvfi_tpu_torch/{d}/" for d in ("ops", "models",
+                                                         "losses"))
+
+
+def moment_errs(one, other) -> dict:
+    """{name: max |first moment of other - one's| / max |one's|} over the
+    trainable parameters of two trainers after a step each."""
+    errs = {}
+    names = [n for n, p in one.net.named_parameters() if p.requires_grad]
+    for n, p, q in zip(names, one.trainable, other.trainable):
+        a = one.optimizer.state[p]["exp_avg"]
+        b = other.optimizer.state[q]["exp_avg"].to(a.device)
+        errs[n] = ((b - a).abs().max() / a.abs().max().clamp_min(1e-30)
+                   ).item()
+    return errs
+
+
+def dp_step_agreement(torch, name: str, one, two, batch, check: bool,
+                      accum=None) -> dict:
+    """One training step of the one-device trainer `one` and the mesh
+    trainer `two` (same weights) on the same batch; every wrapper's count
+    set to 0 just before each step and read just after. With check=True
+    the mesh step holds every kernel call against its plain version
+    (`_CountFunctions`). Returns the metrics' worst relative difference,
+    the first moments' worst and median difference over each tensor's
+    max ("full"), and the launches of each step; with `accum` (a
+    one-device trainer from the same weights with grad_accum 2), the
+    same against it after it took the two shards' rows as two
+    micro-steps ("accum"; its metrics: the two micro-steps' mean)."""
+    counters = wrapper_counters()
+    reset_counts(counters)
+    m1 = one.train_step(*batch)
+    torch.cuda.synchronize()
+    launches_one = read_counts(counters)
+    reset_counts(counters)
+    with _CountFunctions(torch, check=check) as fc:
+        m2 = two.train_step(*batch)
+        torch.cuda.synchronize()
+    launches_two = read_counts(counters)
+    if check:
+        fc.verify(f"{name}, first step")
+    errs = moment_errs(one, two)
+    worst = max(errs, key=errs.get)
+    rec = dict(metrics_one_device={k: float(v) for k, v in m1.items()},
+               metrics_mesh={k: float(v) for k, v in m2.items()},
+               metric=max(abs(float(m2[k]) / float(m1[k]) - 1) for k in m1),
+               full=errs[worst], full_median=statistics.median(errs.values()),
+               full_worst_parameter=worst, parameters=len(errs),
+               launches_one_device=launches_one, launches_mesh=launches_two)
+    if accum is not None:
+        rows = len(batch[0]) // 2
+        ma = [accum.train_step(*(x[half] for x in batch))
+              for half in (slice(0, rows), slice(rows, None))]
+        errs = moment_errs(accum, two)
+        worst = max(errs, key=errs.get)
+        rec.update(accum_metric=max(
+            abs(2 * float(m2[k]) / (float(ma[0][k]) + float(ma[1][k])) - 1)
+            for k in m2),
+                   accum=errs[worst],
+                   accum_median=statistics.median(errs.values()),
+                   accum_worst_parameter=worst)
+    return rec
+
+
+def host_syncs(torch, fn) -> dict:
+    """The synchronising CUDA calls fn() makes (torch's sync debug mode,
+    "warn"), counted by the line of Python that made each (its file,
+    number and code)."""
+    import linecache
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = {}
+    for w in caught:
+        if "synchroniz" in str(w.message):
+            k = (f"{os.path.relpath(w.filename, HERE)}:{w.lineno} "
+                 f"{linecache.getline(w.filename, w.lineno).strip()}")
+            sites[k] = sites.get(k, 0) + 1
+    return sites
+
+
+def replicas_bit_equal(torch, trainer) -> bool:
+    return all(torch.equal(p, q.to(p.device)) for r in trainer.replicas[1:]
+               for p, q in zip(trainer.net.parameters(), r.parameters()))
+
+
+def phase_train_dp(torch, tree: str, runs):
+    """Data-parallel training (`Trainer(mesh=...)`), base phase 3: (a)
+    two 'data' shards on the one card, batch 16 of 256x256 crops, bf16
+    and f32: a step against one device from the same weights on the
+    same batch, taken whole and as two micro-steps of the shards' rows,
+    on each of DP_BATCHES batches (DP_BANDS; every kernel call of the
+    first mesh step against its plain version), then `train_run` (2
+    warm-up, 5 timed steps: every wrapper's launches exactly twice the
+    one-device phase 3 run's), every replica bit-equal to the home one
+    after, the
+    step time and peak memory beside the one-device run's, and the
+    synchronising CUDA calls of one more step by line (`host_syncs`):
+    none from the code the shard loop runs (FORWARD_CODE). (b) a card
+    shard and a CPU shard (f32, batch 2, 128x128): the shards' gradients
+    meet on the card, the CPU replica copies the card's weights; against
+    the one-device card trainer. (c) (a) on two distinct cards where
+    there are two; else one line says it did not run."""
+    import copy
+    import dataclasses
+
+    from atmvfi_tpu_torch.parallel import make_mesh
+    from atmvfi_tpu_torch.train import Trainer, TrainerConfig, get_phase
+
+    phase = get_phase("3")
+    ref = {r["run"]: r for r in runs}
+    bad = []
+
+    def config(dtype, devices, steps_per_epoch):
+        return TrainerConfig(phase, variant="base", dtype=dtype,
+                             steps_per_epoch=steps_per_epoch,
+                             device=devices[0], seed=5)
+
+    cases = [["cuda:0", "cuda:0"]]
+    if torch.cuda.device_count() >= 2:
+        cases.append(["cuda:0", "cuda:1"])
+    else:
+        emit(dict(phase="train_dp", run="two distinct cards", ran=False,
+                  reason=f"{torch.cuda.device_count()} card visible; (c) "
+                  "needs 2"))
+    for devices in cases:
+        for dt in (torch.bfloat16, torch.float32):
+            dname = str(dt).split(".")[-1]
+            one_dev = ref[f"phase3 {dname} batch {phase.batch_size}"]
+            loader = train_loader(tree, phase.batch_size, 3, False)
+            it = iter(loader)
+            batches = [next(it) for _ in range(DP_BATCHES)]
+            it.close()
+            cfg = config(dt, devices, len(loader))
+            one = Trainer(cfg)
+            accum = Trainer(dataclasses.replace(cfg, grad_accum=2))
+            two = Trainer(cfg, mesh=make_mesh((2, 1), devices))
+            start = copy.deepcopy(one.state_dict())
+            name = f"phase3 {dname} batch {phase.batch_size}, 2 shards " \
+                   f"on {'+'.join(devices)}"
+            per_batch = []
+            for i, batch in enumerate(batches):
+                if i:  # the same weights and a fresh optimizer again
+                    for t in (one, accum, two):
+                        t.load_state_dict(start)
+                per_batch.append(dp_step_agreement(torch, name, one, two,
+                                                   batch, i == 0, accum))
+            rec = dict(per_batch[0], batches=[
+                {k: v for k, v in r.items()
+                 if not k.startswith(("launches", "metrics"))}
+                for r in per_batch])
+            for k in ("metric", "full", "full_median", "accum_metric",
+                      "accum", "accum_median"):
+                rec[k] = max(r[k] for r in per_batch)
+            del one, accum, start
+            torch.cuda.empty_cache()
+            run = train_run(torch, name, two, loader, TRAIN_TIMED,
+                            per_forward={k: 2 * v for k, v in
+                                         one_dev["launches_per_step"].items()})
+            band = DP_BANDS[dname]
+            rec.update(
+                phase="train_dp", run=name, devices=devices, dtype=dname,
+                host_syncs_per_step=host_syncs(
+                    torch, lambda: two.train_step(*batch)),
+                bands=band, updates=two.updates,
+                replicas_bit_equal=replicas_bit_equal(torch, two),
+                ms_per_step_median=run["ms_per_step_median"],
+                one_device_ms_per_step_median=one_dev["ms_per_step_median"],
+                peak_memory_gb=run["peak_memory_gb"],
+                one_device_peak_memory_gb=one_dev["peak_memory_gb"],
+                gpu=nvidia_smi_line())
+            emit(rec)
+            twice = {k: 2 * v for k, v in rec["launches_one_device"].items()}
+            # the forward and the criterion run in the shard loop: a sync
+            # there would run distinct cards' shards one after another
+            in_loop = [k for k in rec["host_syncs_per_step"]
+                       if k.startswith(FORWARD_CODE)]
+            if not (not in_loop
+                    and all(rec[k] <= band[k] for k in band)
+                    and rec["replicas_bit_equal"] and two.updates >= 2
+                    and rec["launches_mesh"] == twice):
+                bad.append(name)
+            del two, loader
+            torch.cuda.empty_cache()
+
+    # (b) a card shard beside a CPU shard
+    cfg = config(torch.float32, ["cuda:0", "cpu"], 10)
+    one, two = Trainer(cfg), Trainer(cfg, mesh=make_mesh((2, 1),
+                                                        ["cuda:0", "cpu"]))
+    pairs = smooth_frames(torch, 2, 128, 128, seed=41)
+    im0, im1 = (torch.stack([torch.from_numpy(p[i]) for p in pairs]).float()
+                / 255.0 for i in (0, 1))
+    name = "phase3 float32 batch 2 128x128, shards on cuda:0+cpu"
+    rec = dp_step_agreement(torch, name, one, two,
+                            (im0, 0.5 * (im0 + im1), im1), False)
+    band = DP_BANDS["cuda+cpu"]
+    rec.update(phase="train_dp", run=name, devices=["cuda:0", "cpu"],
+               dtype="float32", bands=band,
+               replica_devices=[str(next(r.parameters()).device)
+                                for r in two.replicas],
+               replicas_bit_equal=replicas_bit_equal(torch, two),
+               gpu=nvidia_smi_line())
+    emit(rec)
+    # the card shard launches one forward's kernels, the CPU shard none
+    if not (all(rec[k] <= band[k] for k in band)
+            and rec["replicas_bit_equal"]
+            and rec["replica_devices"] == ["cuda:0", "cpu"]
+            and rec["launches_mesh"] == rec["launches_one_device"]):
+        bad.append(name)
+    del one, two
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"train_dp: outside the bands or the counts: "
+                             f"{bad}")
 
 
 def phase_train(torch):
@@ -3216,6 +3501,7 @@ def phase_train(torch):
         phase_train_packs(torch, tree)
         phase_train_cli(torch, tree)
         runs = phase_train_steps(torch, tree, vgg)
+        phase_train_dp(torch, tree, runs)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return runs
