@@ -40,6 +40,14 @@ def _device_coeffs(in_size: int, out_size: int, dev: torch.device):
                      for c in _axis_coeffs(in_size, out_size))
 
 
+def clear_caches() -> None:
+    """Drop the resize coefficients kept on devices; the next resize
+    rebuilds them bit-identically. A forward on fake tensors (a count of
+    its work) calls this before and after, so that no fake tensor stays
+    in them."""
+    _device_coeffs.cache_clear()
+
+
 def _resize_axis(x: torch.Tensor, axis: int, out_size: int) -> torch.Tensor:
     if not x.is_floating_point():
         raise TypeError(f"resize_bilinear needs float input, got {x.dtype}")

@@ -51,8 +51,8 @@ the wrapper's operands and results alone, in their own dtypes, under
 `kernel:<wrapper>`. Values inside the plain version are on-chip values.
 
 The count is a context manager; nothing is counted outside it. It
-drops the model's tensor caches (`models.layers.clear_caches`) as it
-starts and ends, so no fake tensor stays in them; the weight packs of
+drops the model's tensor caches (`models.layers.clear_caches`,
+`ops.resize.clear_caches`) as it starts and ends, so no fake tensor stays in them; the weight packs of
 `ops.conv_cuda` are made only inside a wrapper's launch, which a count
 never reaches.
 """
@@ -333,8 +333,10 @@ class Count(TorchDispatchMode):
 
 def _clear_caches() -> None:
     from atmvfi_tpu_torch.models import layers
+    from atmvfi_tpu_torch.ops import resize
 
     layers.clear_caches()
+    resize.clear_caches()
 
 
 @contextlib.contextmanager

@@ -66,7 +66,8 @@ def test_cpu_wrapper_is_the_plain_chain(din, dout, layout):
 
 def _layer_norm_module():
     m = LayerNorm(48, BF16)
-    reset_parameters(m, torch.Generator().manual_seed(1))
+    # The module-level reset_parameters skips the module it is given.
+    m.reset_parameters(torch.Generator().manual_seed(1))
     return m, lambda x: layer_norm_f32(x, m.weight, m.bias,
                                        LN_EPS).to(BF16)
 
